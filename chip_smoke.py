@@ -10,13 +10,14 @@ csrc/`` with ``nvcc`` (and ``native/libwqlcodec.so`` with ``make`` when it
 is missing), then:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the kernels, all sources in parallel;
+2. builds the kernels, all sources in parallel, and prints ptxas's
+   ``-Xptxas -v`` lines (registers, spills, shared memory) per kernel;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it — the stencil kNN at N=131,072,
    K=32 (BASELINE config 3 at the entity plane's pow2 tier) and at
    N=1,048,576, K=8 (config 5 at the server's default k) — bit for bit,
-   and times kernel and plain version with CUDA events beside the
-   kernel's bound;
+   names the kernel each K launches, and times kernel and plain version
+   with CUDA events (cold, clean L2) beside the kernel's bound;
 4. runs three chained ``simulation_tick``s on the card and on the CPU at
    the same sizes: positions, velocities, targets and counts bit-equal;
 5. drives the server's main path: ``Config`` → ``WorldQLServer`` as
@@ -51,13 +52,6 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 
-#: device-memory rate by card (bytes/s): NVIDIA data sheets
-_HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
-             ("H100", 3.35e12))
-#: f32 rate outside the tensor cores (H100 SXM data sheet), used for the
-#: kernel's distance arithmetic and compare-swaps
-_F32_RATE = 67e12
-
 
 def phase(name):
     def wrap(fn):
@@ -72,23 +66,10 @@ def phase(name):
     return wrap
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def hbm_rate(name: str) -> float:
-    for key, rate in _HBM_RATE:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate on record for card {name!r}")
-
-
 @phase("card")
 def phase_card(torch):
+    from worldql_server_tpu_torch.tools.knn_bench import card_line
+
     line = card_line()
     print(f"nvidia-smi: {line}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -118,76 +99,22 @@ def phase_build():
         build.load(name)
     print(f"kernels {sources} built in {time.perf_counter() - t1:.2f} s "
           f"(per source: {build.build_seconds})")
+    for name in sources:
+        for fn, rep in build.ptxas_report(build.library_path(name)).items():
+            print(f"ptxas {name} {fn}: " + " | ".join(rep["lines"]))
     return sources
 
 
-def zipf_world(n, k, seed):
-    """Sorted runs with Zipf-skewed lengths (over-full cubes occur),
-    peers shared across rows, positions inside a 16-cube per run."""
-    rng = np.random.default_rng(seed)
-    lengths = np.minimum(rng.zipf(1.6, n), 4 * k)
-    starts = np.cumsum(lengths)
-    n_runs = int(np.searchsorted(starts, n)) + 1
-    rid = np.repeat(np.arange(n_runs, dtype=np.int32),
-                    lengths[:n_runs])[:n]
-    peer = rng.integers(0, max(n // 4, 1), n).astype(np.int32)
-    pos = (rng.uniform(0, 16, (n, 3))
-           + rid[:, None].astype(np.float64) * 16).astype(np.float32)
-    rid[rng.random(n) < 0.001] = -1  # a few masked rows
-    return rid, peer, pos
-
-
-def cuda_time_ms(torch, fn, iters, flush):
-    """Median device time of ``fn`` over ``iters`` launches, each after
-    a write of a buffer larger than L2 (cold cache, as the tick finds
-    it after its own sort)."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-def knn_bound(torch, rid, peer, k, rate):
-    """Least time for the kernel's work on these inputs: input bytes
-    read once + output written once over the memory rate, against the
-    operations these inputs need (8 f32 ops for each kept candidate's
-    distance and K compare-swaps to place it) over the f32 rate."""
-    n = rid.shape[0]
-    nbytes = n * (4 + 4 + 12) + n * k * 4
-    h = k - 1
-    fill = torch.full((h,), -1, dtype=torch.int32, device=rid.device)
-    rid_p = torch.cat([fill, rid, fill])
-    peer_p = torch.cat([fill, peer, fill])
-    kept = 0
-    for s in range(2 * k - 1):
-        if s == h:
-            continue
-        same = ((rid_p[s:s + n] == rid) & (peer_p[s:s + n] != peer)
-                & (rid >= 0))
-        kept += int(same.sum())
-    ops = kept * (8 + k)
-    t_bytes = nbytes / rate * 1e3
-    t_ops = ops / _F32_RATE * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, ops)
-
-
 @phase("knn kernel vs plain")
-def phase_knn(torch, rate):
-    from worldql_server_tpu_torch.ops.knn import knn_select, knn_select_plain
+def phase_knn(torch, rates):
+    from worldql_server_tpu_torch.ops.knn import (
+        kernel_info, knn_select, knn_select_plain)
+    from worldql_server_tpu_torch.tools.knn_bench import (
+        ITERS, SHAPES, cuda_time_ms, knn_bound, zipf_world)
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     rows = []
-    for n, k in ((131_072, 32), (1_048_576, 8)):
+    for n, k in SHAPES:
         rid, peer, pos = (torch.from_numpy(a).cuda()
                           for a in zipf_world(n, k, SEED + n))
         got = knn_select(rid, peer, pos, k=k)
@@ -201,16 +128,24 @@ def phase_knn(torch, rate):
                 f"{int((got != want).sum())} lanes differ")
         print(f"knn N={n} K={k}: kernel == plain version (tolerance: "
               "exact, every lane)")
-        ms = cuda_time_ms(torch, lambda: knn_select(rid, peer, pos, k=k),
-                          30, flush)
+        info = kernel_info(k)
+        print(f"knn K={k} launches {info['kernel']}: {info['regs']} "
+              f"registers, {info['spill_bytes']} bytes spilled, "
+              f"{info['local_bytes']} bytes local, {info['smem_bytes']} "
+              "bytes shared a block; ptxas: " + " | ".join(info["ptxas"]))
+        ms = cuda_time_ms(lambda: knn_select(rid, peer, pos, k=k), ITERS,
+                          flush)
         plain_ms = cuda_time_ms(
-            torch, lambda: knn_select_plain(rid, peer, pos, k=k), 5, flush)
-        bound_ms, bound_by, nbytes, ops = knn_bound(torch, rid, peer, k,
-                                                    rate)
-        row = {"n": n, "k": k, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bytes": nbytes, "ops": ops, "max_abs_err": err,
-               "targets_kept": int((got >= 0).sum())}
+            lambda: knn_select_plain(rid, peer, pos, k=k), 5, flush)
+        bound = knn_bound(rid, peer, k, rates)
+        print(f"knn N={n} K={k} bound: bytes {bound['bytes_ms']:.5f} ms, "
+              f"f32 {bound['f32_ms']:.5f} ms, integer compares "
+              f"{bound['int_ms']:.5f} ms -> {bound['bound_by']}")
+        row = {"n": n, "k": k, "ms": ms, "plain_ms": plain_ms, **bound,
+               "max_abs_err": err, "targets_kept": int((got >= 0).sum()),
+               **{key: info[key] for key in (
+                   "kernel", "regs", "spill_bytes", "local_bytes",
+                   "smem_bytes")}}
         print("knn", json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -219,10 +154,11 @@ def phase_knn(torch, rate):
 @phase("simulation_tick cuda vs cpu")
 def phase_tick(torch):
     from worldql_server_tpu_torch.ops import tick as tt
+    from worldql_server_tpu_torch.tools.knn_bench import SHAPES, cuda_time_ms
 
     out = []
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    for n, k in ((131_072, 32), (1_048_576, 8)):
+    for n, k in SHAPES:
         rng = np.random.default_rng(SEED + 7 * n)
         pos = rng.uniform(-60, 60, (n, 3)).astype(np.float32)
         pos[: n // 16] += np.float32(990.0)  # bounce off +bounds
@@ -245,8 +181,7 @@ def phase_tick(torch):
             overfull += int((cc > max(k, 2)).sum())
         state = tt.state_from_numpy(pos, vel, world, peer, "cuda")
         tick_ms = cuda_time_ms(
-            torch, lambda: tt.simulation_tick(state, cube_size=16, k=k),
-            10, flush)
+            lambda: tt.simulation_tick(state, cube_size=16, k=k), 10, flush)
         row = {"n": n, "k": k, "tick_ms": tick_ms,
                "overfull_rows": overfull}
         print("tick", json.dumps(row), flush=True)
@@ -463,11 +398,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     os.environ.pop("WQL_TORCH_DEVICE", None)  # the port's default: cuda
     t_all = time.perf_counter()
+    from worldql_server_tpu_torch.tools.knn_bench import card_rates
+
     line = phase_card(torch)
     name = torch.cuda.get_device_name(0)
-    rate = hbm_rate(name)
+    rates = card_rates()
+    print(f"rates: {json.dumps(rates)}")
     phase_build()
-    knn_rows = phase_knn(torch, rate)
+    knn_rows = phase_knn(torch, rates)
     tick_rows = phase_tick(torch)
     report, launches = phase_server(torch)
 
@@ -484,6 +422,10 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "kernel": main_row["kernel"],
+        "regs": main_row["regs"],
+        "spill_bytes": main_row["spill_bytes"],
+        "smem_bytes": main_row["smem_bytes"],
         "shapes": knn_rows,
         "tick": tick_rows,
     }]}

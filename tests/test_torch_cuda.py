@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the CUDA kNN kernel against its
-plain version on the same card, the wrapper's checks, and the tick on
-the card against the tick on the CPU.
+"""Tests of the port that need the card: the CUDA kNN kernels (the
+selection network for K <= 32, the insertion kernel above) against
+their plain version on the same card, which kernel serves each K, the
+wrapper's checks, and the tick on the card against the tick on the CPU.
 
 Every test carries the ``cuda`` marker and skips (with a reason) on a
 host without a card; whether there is one is decided inside each test.
@@ -22,6 +23,8 @@ import torch
 from worldql_server_tpu_torch.ops import tick as tt
 from worldql_server_tpu_torch.ops.knn import (
     MAX_K,
+    NETWORK_MAX_K,
+    kernel_info,
     knn_select,
     knn_select_plain,
 )
@@ -46,7 +49,7 @@ def _world(rng, n, n_runs):
     (2048, 100), (1024, 128), (1024, MAX_K),
 ])
 def test_kernel_matches_plain_on_card(n, k):
-    """Every template instance (KMAX 8..256), masked rows, NaN
+    """Network (K <= 32) and insertion kernels, masked rows, NaN
     distances and heavy ties: kernel == plain version, every lane."""
     _need_card()
     rng = np.random.default_rng(n + k)
@@ -60,6 +63,95 @@ def test_kernel_matches_plain_on_card(n, k):
     torch.cuda.synchronize()
     assert knn_select.launches == before + 1
     assert torch.equal(got, want)
+
+
+#: both sides of the network/insertion boundary, every network width
+_EDGE_KS = [1, 2, 4, 5, 8, 9, 16, 17, 32, 33, MAX_K]
+
+
+def _shaped(case, n, k, seed):
+    rng = np.random.default_rng(seed)
+    rid = np.sort(rng.integers(0, max(1, n // (k + 1)), n)).astype(np.int32)
+    peer = rng.permutation(n).astype(np.int32)
+    pos = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    if case == "runs_longer_than_window":  # every slot of a row is kept
+        rid = (np.arange(n) // (4 * k)).astype(np.int32)
+    elif case == "one_run":
+        rid[:] = 0
+    elif case == "every_row_masked":
+        rid[:] = -1
+    elif case == "all_nan":
+        pos[:] = np.nan
+    elif case == "all_ones_nan":  # the NaN whose bits are 0xFFFFFFFF
+        pos[:] = np.full((n, 3), 0xFFFFFFFF, np.uint32).view(np.float32)
+    elif case == "one_peer_per_run":  # every candidate is same-peer
+        rid = (np.arange(n) // (3 * k)).astype(np.int32)
+        peer = rid.copy()
+    return [torch.from_numpy(a).cuda() for a in (rid, peer, pos)]
+
+
+def _same_as_plain(rid, peer, pos, k):
+    before = knn_select.launches
+    got = knn_select(rid, peer, pos, k=k)
+    want = knn_select_plain(rid, peer, pos, k=k)
+    torch.cuda.synchronize()
+    assert knn_select.launches == before + 1
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("k", _EDGE_KS)
+@pytest.mark.parametrize("case", [
+    "runs_longer_than_window", "one_run", "every_row_masked", "all_nan",
+    "all_ones_nan", "one_peer_per_run",
+])
+def test_kernel_edge_cases_match_plain(case, k):
+    """all_ones_nan: the card's f32 arithmetic returns the canonical NaN
+    0x7FFFFFFF whatever NaN comes in, so no kept key reaches the invalid
+    key, which the network's FULL form keeps on top unsorted."""
+    _need_card()
+    got = _same_as_plain(*_shaped(case, 1000, k, k), k)
+    if case in ("every_row_masked", "one_peer_per_run"):
+        assert (got == -1).all()
+    if case == "runs_longer_than_window" and k >= 2:
+        # rows whose whole window lies in their run keep 2K-2 >= K
+        at = np.arange(1000) % (4 * k)
+        mid = (at >= k - 1) & (at <= 3 * k) & (np.arange(1000) + k <= 1000)
+        assert (got[torch.from_numpy(mid).cuda()] >= 0).all()
+
+
+@pytest.mark.parametrize("k", _EDGE_KS)
+@pytest.mark.parametrize("n", [
+    7,     # below one warp
+    1000,  # not a multiple of the 128-row block: the ragged store
+    1001,  # rows*K*4 of the last block not a multiple of 16 for odd K
+])
+def test_kernel_sizes_match_plain(n, k):
+    _need_card()
+    _same_as_plain(*_shaped("random", n, k, n + k), k)
+
+
+@pytest.mark.parametrize("k,kernel", [
+    (1, "knn_network_kernel<2, true>"), (2, "knn_network_kernel<4, true>"),
+    (3, "knn_network_kernel<8, false>"), (4, "knn_network_kernel<8, true>"),
+    (5, "knn_network_kernel<16, false>"),
+    (8, "knn_network_kernel<16, true>"),
+    (9, "knn_network_kernel<32, false>"),
+    (16, "knn_network_kernel<32, true>"),
+    (17, "knn_network_kernel<64, false>"),
+    (32, "knn_network_kernel<64, true>"),
+    (33, "knn_insert_kernel<64>"), (100, "knn_insert_kernel<128>"),
+    (MAX_K, "knn_insert_kernel<256>"),
+])
+def test_each_k_has_one_kernel(k, kernel):
+    """Dispatch by K: the network up to NETWORK_MAX_K (the main path's
+    K=8 and K=32 among them), held in registers with no local memory;
+    the insertion kernel above."""
+    _need_card()
+    info = kernel_info(k)
+    assert info["kernel"] == kernel
+    if k <= NETWORK_MAX_K:
+        assert info["spill_bytes"] == 0 and info["local_bytes"] == 0
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

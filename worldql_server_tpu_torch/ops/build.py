@@ -10,7 +10,10 @@ every module on a host without ``nvcc``.
 
 ``--fmad=false`` is part of every build: the kernels reproduce f32
 arithmetic bit for bit against their plain PyTorch versions, and a
-contracted multiply-add changes the rounding.
+contracted multiply-add changes the rounding. ``-Xptxas -v`` is too:
+ptxas's report of each kernel's registers, spills and shared memory is
+kept beside the library (``<library>.ptxas.txt``) and parsed by
+``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +34,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
@@ -54,20 +58,30 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source + flags."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def keyed_path(src_path: str, stem: str) -> str:
+    """Where a source builds to: keyed by its bytes + the flags."""
+    with open(src_path, "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its keyed library exists.
-    Returns the library path; raises with nvcc's output on failure."""
-    out = library_path(name)
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` builds to."""
+    return keyed_path(source_path(name), name)
+
+
+def build_file(src_path: str, stem: str) -> str:
+    """Compile one ``.cu`` file with the port's flags unless its keyed
+    library exists; ptxas's report goes beside it. Returns the library
+    path; raises with nvcc's output on failure."""
+    out = keyed_path(src_path, stem)
     if os.path.exists(out):
-        build_seconds.setdefault(name, 0.0)
+        build_seconds.setdefault(stem, 0.0)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -75,21 +89,62 @@ def build(name: str) -> str:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC_DIR, f"{name}.cu")],
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for csrc/{name}.cu (rc={proc.returncode}):\n"
+                f"nvcc failed for {src_path} (rc={proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_seconds[name] = time.perf_counter() - t0
+    build_seconds[stem] = time.perf_counter() - t0
     return out
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its keyed library exists."""
+    return build_file(source_path(name), name)
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict[str, dict]:
+    """``-Xptxas -v`` output → {mangled kernel name: {"regs",
+    "spill_bytes" (spill stores), "lines" (its stack-frame and usage
+    lines, shared memory and barriers included)}}."""
+    out: dict[str, dict] = {}
+    cur = None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {
+                "regs": None, "spill_bytes": 0, "lines": []})
+            continue
+        if cur is None:
+            continue
+        spill, used = _SPILL.search(line), _USED.search(line)
+        if spill:
+            cur["spill_bytes"] = int(spill.group(1))
+        if used:
+            cur["regs"] = int(used.group(1))
+        if spill or used:
+            cur["lines"].append(line.strip())
+    return out
+
+
+def ptxas_report(lib_path: str) -> dict[str, dict]:
+    """The parsed ``-Xptxas -v`` report kept beside a built library."""
+    with open(lib_path + ".ptxas.txt") as f:
+        return parse_ptxas(f.read())
 
 
 def load(name: str) -> ctypes.CDLL:

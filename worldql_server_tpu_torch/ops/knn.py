@@ -26,16 +26,17 @@ import torch
 
 from . import build
 
-#: the kernel is instantiated for K up to this (csrc/knn_select.cu)
+#: the kernels serve K up to this (csrc/knn_select.cu): the selection
+#: network for K <= NETWORK_MAX_K, the insertion kernel above it
 MAX_K = 256
+NETWORK_MAX_K = 32
 
 _INVALID = 0xFFFFFFFF
 _LOW32 = 0xFFFFFFFF
 _SIGN32 = 1 << 31
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("knn_select")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.wql_knn_select
     if fn.argtypes is None:
         fn.argtypes = [
@@ -43,7 +44,51 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        if hasattr(lib, "wql_knn_kernel_info"):
+            info = lib.wql_knn_kernel_info
+            info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            info.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _bind(build.load("knn_select"))
+
+
+def kernel_info(k: int, lib_path: str | None = None) -> dict:
+    """Which kernel of ``csrc/knn_select.cu`` (or of the build at
+    ``lib_path``) serves K, and what it holds on the card: ``kernel``
+    (``knn_network_kernel<W, FULL>`` or ``knn_insert_kernel<KMAX>``),
+    ``regs`` and ``local_bytes`` a thread and ``smem_bytes`` a block
+    (from the runtime), ``spill_bytes`` and ``ptxas`` (its lines of the
+    build's ``-Xptxas -v`` report), ``mangled`` (its symbol). Needs the
+    card."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_select: k={k} outside [1, {MAX_K}]")
+    if lib_path is None:
+        lib, lib_path = _lib(), build.library_path("knn_select")
+    else:
+        lib = _bind(ctypes.CDLL(lib_path))
+    info = (ctypes.c_int * 6)()
+    err = lib.wql_knn_kernel_info(k, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"wql_knn_kernel_info failed: cudaError {err}")
+    kind, width, full, regs, local_bytes, smem_bytes = info
+    if kind == 0:
+        name = f"knn_network_kernel<{width}, {('false', 'true')[full]}>"
+        pattern = f"knn_network_kernelILi{width}ELb{full}E"
+    else:
+        name = f"knn_insert_kernel<{width}>"
+        pattern = f"knn_insert_kernelILi{width}E"
+    report = [(sym, v) for sym, v in build.ptxas_report(lib_path).items()
+              if pattern in sym]
+    if len(report) != 1:
+        raise RuntimeError(f"no single ptxas entry for {pattern}")
+    (mangled, rep), = report
+    return {"kernel": name, "regs": regs,
+            "local_bytes": local_bytes, "smem_bytes": smem_bytes,
+            "spill_bytes": rep["spill_bytes"], "ptxas": rep["lines"],
+            "mangled": mangled}
 
 
 def knn_select_plain(rid: torch.Tensor, peer: torch.Tensor,
