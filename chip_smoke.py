@@ -5,9 +5,9 @@ Run from the repository root on a host with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from ``worldql_server_tpu_torch/
-csrc/`` with ``nvcc`` (and ``native/libwqlcodec.so`` with ``make`` when it
-is missing), then:
+It builds ``native/libwqlcodec.so`` with ``make`` when it is missing
+(before importing the port) and every CUDA kernel of the port from
+``worldql_server_tpu_torch/csrc/`` with ``nvcc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the kernels, all sources in parallel, and prints ptxas's
@@ -20,17 +20,36 @@ is missing), then:
    with CUDA events (cold, clean L2) beside the kernel's bound;
 4. runs three chained ``simulation_tick``s on the card and on the CPU at
    the same sizes: positions, velocities, targets and counts bit-equal;
-5. drives the server's main path: ``Config`` → ``WorldQLServer`` as
-   ``python -m worldql_server_tpu_torch --entity-sim`` builds them, 64
-   peers with in-memory sinks register 100,000 entities with velocities
-   in 4 worlds through the router / ``ColumnarIngest`` path, and the
-   ticker serves sim ticks at k=32 with every kernel's launch counter
-   reset just before and read just after — twice: at least 10 ticks
-   with every entity moving (full ticks), then at least 5 with 1%
-   moving (delta ticks at pow2 sub-tiers); sampled frames are decoded
-   and checked;
-6. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+5. runs every op of the device subscription index (``ops/index.py``,
+   K1–K6) on the card and on the CPU at the index's full width —
+   1,048,576 rows of the BASELINE config-5 Zipf crowd, 16,384 queries —
+   bit-equal, and times each on the card;
+6. fan-out at config 5 on ``CudaSpatialBackend``: bulk load, compaction
+   drained, the boot tier walk, 24 pipelined ticks of 16,384 staged
+   queries collected on a worker thread as the ticker collects them
+   (sampled ticks equal to the port's cpu index), the tick p50/p99 and
+   its encode/h2d/compute/d2h split; then 5 more ticks under
+   ``torch.profiler``, printing the top device ops with their counts;
+7. config-2 churn: 10,000 random-walk clients, 50 ticks of bulk
+   remove + add, flush and ``match_arrays_async`` — fan-out equal to the
+   cpu index's every tick;
+8. LocalMessage through the server as a bare ``python -m
+   worldql_server_tpu_torch`` boots it on a card (cuda index, 0.05 s
+   tick, staged dispatch): the 10,000 config-2 clients join with
+   in-memory sinks, subscribe through the router and send one
+   LocalMessage each a tick for 10 ticks; frames per peer per tick equal
+   what the cpu index resolves;
+9. drives the entity-sim main path: ``Config`` → ``WorldQLServer`` as
+   ``python -m worldql_server_tpu_torch --entity-sim`` builds them on a
+   card (the cuda index, the plane on the same card), 64 peers with
+   in-memory sinks register 100,000 entities with velocities in 4
+   worlds through the router / ``ColumnarIngest`` path, and the ticker
+   serves sim ticks at k=32 with every kernel's launch counter reset
+   just before and read just after — twice: at least 5 ticks with every
+   entity moving (full ticks), then at least 4 with 1% moving (delta
+   ticks at pow2 sub-tiers); sampled frames are decoded and checked;
+10. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
+    the last line ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure; nothing is caught. Without a CUDA card,
 or without the port beside this file, it exits non-zero and prints no
@@ -77,15 +96,23 @@ def phase_card(torch):
     return line
 
 
-@phase("build")
-def phase_build():
-    from worldql_server_tpu_torch.ops import build
-
+def build_native_codec():
+    """``make -C native`` when the library is missing. Runs before any
+    module of the port is imported: the wire codec looks for the
+    library once, when ``protocol`` is first imported (``ops/index.py``
+    imports it), and would otherwise fall back to the ``flatbuffers``
+    package, which the card host does not have."""
     t0 = time.perf_counter()
     if not os.path.exists(os.path.join(REPO, "native", "libwqlcodec.so")):
         subprocess.run(["make", "-C", os.path.join(REPO, "native")],
                        check=True, capture_output=True)
         print(f"native codec built in {time.perf_counter() - t0:.2f} s")
+
+
+@phase("build")
+def phase_build():
+    from worldql_server_tpu_torch.ops import build
+
     sources = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
                      if f.endswith(".cu"))
     # one nvcc per source, all started together (build() compiles
@@ -210,12 +237,19 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         "--no-ws", "--no-http", "--no-zmq",
     ])
     config = config_from_args(args)
-    apply_device_boot_defaults(config, interval_explicit=True)
+    apply_device_boot_defaults(config, backend_explicit=False,
+                               interval_explicit=True)
     config.validate()
 
     knn_select.launches = 0  # the main path's run starts here
     server = WorldQLServer(config, device=device)
     plane = server.entity_plane
+    if (config.spatial_backend != "cuda"
+            or server.backend.device != plane.device):
+        raise AssertionError(
+            f"entity sim over {config.spatial_backend} on "
+            f"{getattr(server.backend, 'device', 'host')}, plane on "
+            f"{plane.device}")
     await server.start()
     sunk = {"frames": 0, "bytes": 0}
     sample: list[bytes] = []
@@ -351,17 +385,415 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         "dropped_ticks": stats["dropped_ticks"],
         "warmup": server.precompile_stats,
         "device": str(plane.device),
+        "index": {k: server.backend.device_stats()[k] for k in (
+            "subscriptions", "base_rows", "delta_rows", "compactions",
+            "delta_sync_sorts", "delta_sync_scatters")},
         "moving": moving, "frames_checked": frames_seen,
     }
     return report, launches
 
 
+def _ms_stats(vals):
+    vals = sorted(vals)
+    return {"p50": vals[len(vals) // 2],
+            "p99": vals[min(len(vals) - 1, int(0.99 * len(vals)))]}
+
+
+@phase("index ops cuda vs cpu")
+def phase_index_ops(torch, n_subs=1 << 20, n_q=16_384, device="cuda"):
+    """Every K1–K6 op of ops/index.py on the card and on the CPU from the
+    same seeded inputs at the index's full width (1,048,576 rows of the
+    config-5 Zipf crowd in 8 worlds, 16,384 queries, a 65,536-row
+    delta): bit-equal outputs, and each op's time on the card."""
+    from worldql_server_tpu_torch.tools.index_bench import (
+        op_calls, op_inputs)
+    from worldql_server_tpu_torch.tools.knn_bench import cuda_time_ms
+
+    gcalls = op_calls(op_inputs(n_subs, n_q, SEED, device))
+    ccalls = op_calls(op_inputs(n_subs, n_q, SEED, "cpu"))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for (name, g), (_, c) in zip(gcalls, ccalls):
+        got, want = g(), c()
+        torch.cuda.synchronize()
+        if len(got) != len(want) or not all(
+                a.device.type == device and torch.equal(a.cpu(), b)
+                for a, b in zip(got, want)):
+            raise AssertionError(f"index op {name}: card != cpu")
+        ms = cuda_time_ms(g, 10, flush)
+        row = {"op": name, "ms": ms,
+               "out_bytes": sum(a.numel() * a.element_size() for a in got)}
+        print("index op", json.dumps(row), flush=True)
+        rows.append(row)
+    print(f"index ops: {len(rows)} ops, card == cpu bit for bit "
+          f"(tolerance: exact) at {n_subs} rows x {n_q} queries")
+    return rows
+
+
+def _cpu_fanout(ref, worlds, peers, batch):
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+
+    wid, pos, sid, repl = batch
+    return ref.match_local_batch([
+        LocalQuery(worlds[w], Vector3(*map(float, p)),
+                   peers[s] if s >= 0 else None, Replication(int(r)))
+        for w, p, s, r in zip(wid, pos, sid, repl)])
+
+
+def _same_fanout(got, want, what):
+    if [set(x) for x in got] != [set(x) for x in want] or \
+            [len(x) for x in got] != [len(x) for x in want]:
+        bad = sum(set(a) != set(b) for a, b in zip(got, want))
+        raise AssertionError(f"{what}: {bad} queries differ from the "
+                             "cpu index")
+
+
+def _top_device_ops(prof, wall_ms):
+    """The profile's top-10 device activities by self time and top-10
+    aten ops by device time, with counts; None when the profiler saw no
+    device time."""
+    rows = []
+    for e in prof.key_averages():
+        self_us = getattr(e, "self_device_time_total", None)
+        if self_us is None:
+            self_us = getattr(e, "self_cuda_time_total", 0)
+        total_us = getattr(e, "device_time_total", None)
+        if total_us is None:
+            total_us = getattr(e, "cuda_time_total", 0)
+        rows.append((e.key, int(e.count), float(self_us), float(total_us)))
+    busy_us = sum(r[2] for r in rows)
+    if busy_us <= 0:
+        return None
+    kernels = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    ops = sorted((r for r in rows if r[0].startswith("aten::") and r[3] > 0),
+                 key=lambda r: -r[3])
+    return {
+        "device_busy_ms": busy_us / 1e3, "wall_ms": wall_ms,
+        "device_busy_share": busy_us / 1e3 / wall_ms,
+        "top_device": [{"name": k[:90], "count": c, "self_ms": su / 1e3}
+                       for k, c, su, _ in kernels[:10]],
+        "top_aten": [{"op": k, "count": c, "device_ms": tu / 1e3}
+                     for k, c, _, tu in ops[:10]],
+    }
+
+
+@phase("fan-out config 5")
+def phase_fanout(torch, n_ticks=24, profile_ticks=5, n_subs=1 << 20,
+                 m=16_384, device=None):
+    """BASELINE config 5 on the cuda index: 1,048,576 Zipf-crowd
+    subscriptions in 8 worlds, bulk load, compaction drained, the boot
+    tier walk, then ``n_ticks`` pipelined ticks of 16,384 staged queries
+    (dispatch tick t+1, collect tick t on a worker thread, as the
+    ticker does), sampled ticks held against the cpu index; then
+    ``profile_ticks`` more under torch.profiler."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.precompile import precompile_tiers
+    from worldql_server_tpu_torch.spatial.quantize import cube_coords_batch
+    from worldql_server_tpu_torch.tools.index_bench import (
+        build_index, make_query_batch)
+
+    n_worlds = 8
+    rng = np.random.default_rng(SEED + 5)
+    dev = CudaSpatialBackend(16, device=device)  # default: the card
+    dev.configure_delta_ticks("auto")       # as the server arms it
+    crowd = {}
+    t0 = time.perf_counter()
+    peers, pos, wids = build_index(dev, rng, n_subs, n_worlds, crowd)
+    dev.flush()
+    dev.wait_compaction()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    worlds = [f"world_{w}" for w in range(n_worlds)]
+    ref = CpuSpatialBackend(16)
+    cubes = cube_coords_batch(pos, 16)
+    for w in range(n_worlds):
+        sel = np.flatnonzero(wids == w)
+        ref.bulk_add_subscriptions(worlds[w], [peers[i] for i in sel],
+                                   cubes[sel])
+    t0 = time.perf_counter()
+    walk = precompile_tiers(dev, max_batch=m)
+    walk_s = time.perf_counter() - t0
+    batches = [make_query_batch(rng, pos, wids, m)
+               for _ in range(n_ticks + profile_ticks)]
+
+    def collect(handle):
+        out = dev.collect_local_batch(handle)
+        return out, dict(dev.last_device_timing), dict(dev.last_collect_stats)
+
+    sample = {1, n_ticks // 2, n_ticks - 1}
+    ticks = []
+    fetch0 = (dev.compact_fetches, dev.full_fetches)
+    with ThreadPoolExecutor(1) as pool:
+        pending = None
+
+        def finish(item):
+            t, t_d, fut = item
+            out, timing, fetched = fut.result()
+            ticks.append({"tick_ms": (time.perf_counter() - t_d) * 1e3,
+                          "fanout": sum(map(len, out)), **timing,
+                          **fetched})
+            if t in sample:
+                _same_fanout(out, _cpu_fanout(ref, worlds, peers,
+                                              batches[t]),
+                             f"config-5 tick {t}")
+
+        for t in range(n_ticks):
+            t_d = time.perf_counter()
+            fut = pool.submit(collect, dev.dispatch_staged_batch(*batches[t]))
+            if pending is not None:
+                finish(pending)
+            pending = (t, t_d, fut)
+        finish(pending)
+    steady = ticks[1:]
+    report = {
+        "subscriptions": dev.subscription_count(), "worlds": n_worlds,
+        "queries": m, "ticks": len(ticks), "crowd": crowd,
+        "load_s": load_s, "tier_walk_s": walk_s, "tier_walk": walk,
+        "tick_ms": _ms_stats([r["tick_ms"] for r in steady]),
+        "split_ms_p50": {
+            leg: _ms_stats([r.get(leg, 0.0) for r in steady])["p50"]
+            for leg in ("encode_ms", "h2d_ms", "d2h_enqueue_ms",
+                        "compute_ms", "d2h_ms")},
+        "paths": sorted({r.get("path", "?") for r in steady}),
+        "compact_fetches": dev.compact_fetches - fetch0[0],
+        "full_fetches": dev.full_fetches - fetch0[1],
+        "fetch_bytes_p50": _ms_stats([r["fetch_bytes"] for r in steady])[
+            "p50"],
+        "fanout_per_tick": _ms_stats([r["fanout"] for r in steady])["p50"],
+        "ticks_checked_against_cpu": sorted(sample),
+        "device_stats": dev.device_stats(),
+    }
+    print("fanout", json.dumps(report), flush=True)
+
+    # the profile: the same ticks, dispatch + collect, under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[n_ticks:]:
+            dev.collect_local_batch(dev.dispatch_staged_batch(*b))
+        torch.cuda.synchronize()
+    top = _top_device_ops(prof, (time.perf_counter() - t0) * 1e3)
+    if top is None:
+        print("profile: torch.profiler recorded no device time; the "
+              "per-op CUDA-event times of the index-ops phase stand in")
+    else:
+        print(f"profile of {profile_ticks} fan-out ticks: device busy "
+              f"{top['device_busy_ms']:.3f} ms of {top['wall_ms']:.3f} ms "
+              f"wall ({100 * top['device_busy_share']:.2f}%)")
+        for r in top["top_device"]:
+            print(f"profile device {r['self_ms']:10.3f} ms  x{r['count']:<5}"
+                  f" {r['name']}")
+        for r in top["top_aten"]:
+            print(f"profile aten   {r['device_ms']:10.3f} ms  x{r['count']:<5}"
+                  f" {r['op']}")
+        print("profile", json.dumps(top), flush=True)
+    return report, top
+
+
+@phase("churn config 2")
+def phase_churn(torch, n_ticks=50, n=10_000, device=None):
+    """BASELINE config 2 on the cuda index: 10,000 random-walk clients
+    (cube 16, ±400, velocities ±30, dt 0.05); each tick bulk remove +
+    add of the movers, flush, then match_arrays_async with csr_cap =
+    n*8 for every client — fan-out equal to the cpu index's every
+    tick."""
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.tools.index_bench import RandomWalk
+
+    walk = RandomWalk(np.random.default_rng(11), n)
+    dev = CudaSpatialBackend(16, device=device)
+    dev.configure_delta_ticks("auto")
+    ref = CpuSpatialBackend(16)
+    for b in (dev, ref):
+        b.bulk_add_subscriptions("walk", walk.peers, walk.cubes)
+    dev.flush()
+    world_ids = np.zeros(n, np.int32)
+    senders = np.arange(n, dtype=np.int32)
+    repls = np.zeros(n, np.int8)
+    rows = []
+    for t in range(n_ticks):
+        t0 = time.perf_counter()
+        moved, old, new = walk.step()
+        sel = [walk.peers[i] for i in moved]
+        dev.bulk_remove_subscriptions("walk", sel, old)
+        dev.bulk_add_subscriptions("walk", sel, new)
+        dev.flush()
+        m, (counts, flat, total) = dev.match_arrays_async(
+            world_ids, walk.positions, senders, repls, csr_cap=n * 8)
+        if int(total) > flat.shape[0]:
+            raise AssertionError(f"churn tick {t}: csr_cap overflow")
+        got = dev._decode_csr(counts.cpu().numpy(), flat.cpu().numpy(), m)
+        rows.append({"tick_ms": (time.perf_counter() - t0) * 1e3,
+                     "moved": int(moved.size),
+                     "fanout": sum(map(len, got))})
+        for i, o, c in zip(moved, old, new):
+            ref.remove_subscription("walk", walk.peers[i],
+                                    tuple(int(v) for v in o))
+            ref.add_subscription("walk", walk.peers[i],
+                                 tuple(int(v) for v in c))
+        _same_fanout(got, _cpu_fanout(ref, ["walk"], walk.peers,
+                                      (world_ids, walk.positions,
+                                       senders, repls)),
+                     f"config-2 tick {t}")
+    dev.wait_compaction()
+    report = {
+        "clients": n, "ticks": n_ticks,
+        "tick_ms": _ms_stats([r["tick_ms"] for r in rows[1:]]),
+        "resubscriptions_per_tick": statistics.median(
+            r["moved"] for r in rows),
+        "fanout_per_tick": statistics.median(r["fanout"] for r in rows),
+        "compactions": dev.compactions,
+        "delta_sync": dict(dev.last_delta_sync),
+        "device": str(dev.device),
+    }
+    print("churn", json.dumps(report), flush=True)
+    return report
+
+
+async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
+    """LocalMessage fan-out through the server as ``python -m
+    worldql_server_tpu_torch`` boots it on a card (the cuda index, a
+    0.05 s tick, staged dispatch): the 10,000 config-2 clients join with
+    in-memory sinks, AreaSubscribe their cube through the router, and
+    each sends one LocalMessage a tick from its walking position. Frames
+    each peer receives per tick must equal what the cpu index resolves
+    for the same messages."""
+    import collections
+
+    from worldql_server_tpu_torch.__main__ import (
+        build_parser, config_from_args)
+    from worldql_server_tpu_torch.engine.config import (
+        apply_device_boot_defaults)
+    from worldql_server_tpu_torch.engine.peers import Peer
+    from worldql_server_tpu_torch.engine.server import WorldQLServer
+    from worldql_server_tpu_torch.protocol import Instruction, Message
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.tools.index_bench import RandomWalk
+
+    config = config_from_args(build_parser().parse_args([
+        "--store-url", "memory://", "--no-ws", "--no-http", "--no-zmq"]))
+    apply_device_boot_defaults(config, backend_explicit=False,
+                               interval_explicit=False)
+    config.validate()
+    server = WorldQLServer(config, device=device)
+    if not (isinstance(server.backend, CudaSpatialBackend)
+            and server.backend.device.type == (device or "cuda")
+            and config.tick_interval == 0.05 and server.staging is not None):
+        raise AssertionError(f"server booted {config.spatial_backend} on "
+                             f"{getattr(server.backend, 'device', 'host')}")
+    await server.start()
+    walk = RandomWalk(np.random.default_rng(SEED + 2), n)
+    frames = collections.Counter()
+
+    def sink(p):
+        def one(f):
+            frames[p] += 1
+            return True
+
+        def many(fs):
+            frames[p] += len(fs)
+            return True
+
+        async def raw(data):
+            frames[p] += 1
+        return raw, one, many
+
+    t0 = time.perf_counter()
+    for p in walk.peers:
+        raw, one, many = sink(p)
+        await server.peer_map.insert(Peer(
+            p, f"mem:{p.hex[:8]}", raw, kind="memory", try_write=one,
+            try_write_many=many))
+    join_s = time.perf_counter() - t0
+    ref = CpuSpatialBackend(16)
+    for i, p in enumerate(walk.peers):
+        cube_pos = Vector3(*map(float, walk.positions[i]))
+        await server.router.handle_message(Message(
+            instruction=Instruction.AREA_SUBSCRIBE, sender_uuid=p,
+            world_name="walk", position=cube_pos))
+        ref.add_subscription("walk", p, cube_pos)
+    if server.backend.subscription_count() != n:
+        raise AssertionError("subscriptions missing from the cuda index")
+    staged0 = server.backend.staged_dispatches
+    rows = []
+    for t in range(n_ticks):
+        walk.step()
+        before = collections.Counter(frames)
+        sent = server.ticker.messages + n
+        t_send = time.perf_counter()
+        for i, p in enumerate(walk.peers):
+            await server.router.handle_message(Message(
+                instruction=Instruction.LOCAL_MESSAGE, sender_uuid=p,
+                world_name="walk",
+                position=Vector3(*map(float, walk.positions[i])),
+                parameter="walk"))
+        t_sent = time.perf_counter()
+        while server.ticker.messages < sent:
+            await asyncio.sleep(0.002)
+        t_done = time.perf_counter()
+        got = frames - before
+        want = collections.Counter()
+        for targets in ref.match_local_batch([
+                LocalQuery("walk", Vector3(*map(float, walk.positions[i])),
+                           p, Replication.EXCEPT_SELF)
+                for i, p in enumerate(walk.peers)]):
+            want.update(targets)
+        if got != want:
+            raise AssertionError(
+                f"LocalMessage tick {t}: {sum(got.values())} frames "
+                f"delivered, the cpu index resolves {sum(want.values())}")
+        rows.append({"frames": sum(got.values()),
+                     "send_ms": (t_sent - t_send) * 1e3,
+                     "flush_wait_ms": (t_done - t_sent) * 1e3,
+                     "tick_ms": server.ticker.last_tick_ms})
+    staged = server.backend.staged_dispatches - staged0
+    await server.stop()
+    if staged == 0:
+        raise AssertionError("no LocalMessage went through staged dispatch")
+    return {
+        "peers": n, "ticks": n_ticks, "join_s": join_s,
+        "frames_per_tick": statistics.median(r["frames"] for r in rows),
+        "tick_ms": _ms_stats([r["tick_ms"] for r in rows]),
+        "send_ms_p50": _ms_stats([r["send_ms"] for r in rows])["p50"],
+        "flush_wait_ms_p50": _ms_stats(
+            [r["flush_wait_ms"] for r in rows])["p50"],
+        "staged_dispatches": staged,
+        "device_stats": server.backend.device_stats(),
+    }
+
+
+@phase("LocalMessage through the server")
+def phase_local_messages(torch):
+    report = asyncio.run(drive_local_messages(torch))
+    print("localmessage", json.dumps(report), flush=True)
+    return report
+
+
 @phase("server on the card")
 def phase_server(torch):
-    report, launches = asyncio.run(drive_server(torch, moving=1.0))
+    # 5 + 4 served ticks (10 + 5 before the index phases took the room)
+    report, launches = asyncio.run(
+        drive_server(torch, moving=1.0, min_ticks=5))
     print("server", json.dumps(report), flush=True)
     idle, idle_launches = asyncio.run(
-        drive_server(torch, moving=0.01, min_ticks=5))
+        drive_server(torch, moving=0.01, min_ticks=4))
     print("server", json.dumps(idle), flush=True)
     for rep, n in ((report, launches), (idle, idle_launches)):
         if rep["device"] != "cuda":
@@ -398,6 +830,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     os.environ.pop("WQL_TORCH_DEVICE", None)  # the port's default: cuda
     t_all = time.perf_counter()
+    build_native_codec()
     from worldql_server_tpu_torch.tools.knn_bench import card_rates
 
     line = phase_card(torch)
@@ -407,6 +840,10 @@ def main() -> int:
     phase_build()
     knn_rows = phase_knn(torch, rates)
     tick_rows = phase_tick(torch)
+    phase_index_ops(torch)
+    phase_fanout(torch)
+    phase_churn(torch)
+    phase_local_messages(torch)
     report, launches = phase_server(torch)
 
     main_row = knn_rows[0]  # N=131,072, K=32: the server phase's shape

@@ -1,7 +1,10 @@
 """Tests of the port that need the card: the CUDA kNN kernels (the
 selection network for K <= 32, the insertion kernel above) against
 their plain version on the same card, which kernel serves each K, the
-wrapper's checks, and the tick on the card against the tick on the CPU.
+wrapper's checks, the tick on the card against the tick on the CPU, and
+the device subscription index — every K1–K6 op of ``ops/index.py`` on
+the card against the same op on the CPU, and ``CudaSpatialBackend`` on
+the card against the port's ``CpuSpatialBackend`` under churn.
 
 Every test carries the ``cuda`` marker and skips (with a reason) on a
 host without a card; whether there is one is decided inside each test.
@@ -11,7 +14,7 @@ This file imports neither JAX nor the JAX package, so on the card host
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 Tolerance: exact — kernel and plain version are compared lane for lane,
-the tick's outputs bit for bit.
+the tick's and the index ops' outputs bit for bit, fan-out as sets.
 """
 
 from __future__ import annotations
@@ -184,3 +187,84 @@ def test_tick_on_card_equals_tick_on_cpu(k):
         for a, b in ((gs.position, cs.position), (gs.velocity, cs.velocity),
                      (gt, ct), (gc, cc)):
             assert torch.equal(a.cpu(), b)
+
+
+# --- the device subscription index (ops/index.py, spatial/cuda_backend.py)
+
+
+@pytest.mark.parametrize("n_subs,n_queries", [(4096, 512), (65536, 4096)])
+def test_index_ops_on_card_equal_cpu(n_subs, n_queries):
+    """Every K1–K6 op on the card against the same op on the CPU, on the
+    same seeded inputs: bit for bit, every output."""
+    _need_card()
+    from worldql_server_tpu_torch.tools.index_bench import (
+        op_calls, op_inputs)
+
+    gpu = op_calls(op_inputs(n_subs, n_queries, seed=n_subs, device="cuda"))
+    cpu = op_calls(op_inputs(n_subs, n_queries, seed=n_subs, device="cpu"))
+    for (name, g), (_, c) in zip(gpu, cpu):
+        got, want = g(), c()
+        torch.cuda.synchronize()
+        assert len(got) == len(want), name
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda", name
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("delta_ticks", ["auto", "off"])
+def test_cuda_backend_on_card_matches_cpu_backend_under_churn(delta_ticks):
+    """CudaSpatialBackend on the card against the port's CpuSpatialBackend
+    under bulk moves, unsubscribes, peer removals and background
+    compactions, with the pack path open: equal fan-out sets."""
+    _need_card()
+    import uuid
+
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.quantize import cube_coords_batch
+
+    rng = np.random.default_rng(99)
+    n = 3000
+    dev = CudaSpatialBackend(16, 512, device="cuda")
+    dev.configure_delta_ticks(delta_ticks)
+    dev.compact_fetch_min_cap = 0
+    dev.compact_min_bucket = 8
+    ref = CpuSpatialBackend(16)
+    peers = [uuid.UUID(int=0xC000 + i) for i in range(n)]
+    spots = rng.integers(-8, 8, (60, 3)) * 16 + 8.0
+    pos = spots[rng.integers(0, 60, n)] + rng.uniform(-7, 7, (n, 3))
+    cubes = cube_coords_batch(pos, 16)
+    for b in (dev, ref):
+        b.bulk_add_subscriptions("w", peers, cubes)
+    for step in range(10):
+        idx = rng.choice(n, 200, replace=False)
+        new = cubes[idx] + rng.integers(-1, 2, (200, 3)) * 16
+        sel = [peers[i] for i in idx]
+        dev.bulk_move_subscriptions("w", sel, cubes[idx], sel, new)
+        for i, o, c in zip(idx, cubes[idx], new):
+            ref.remove_subscription("w", peers[i], tuple(int(v) for v in o))
+            ref.add_subscription("w", peers[i], tuple(int(v) for v in c))
+        cubes[idx] = new
+        gone = int(rng.integers(0, n))
+        assert dev.remove_peer(peers[gone]) == ref.remove_peer(peers[gone])
+        m = 1024
+        qpos = spots[rng.integers(0, 60, m)] + rng.uniform(-7, 7, (m, 3))
+        sid = rng.integers(-1, n, m).astype(np.int32)
+        repl = rng.integers(0, 3, m).astype(np.int8)
+        got = dev.collect_local_batch(dev.dispatch_staged_batch(
+            np.zeros(m, np.int32), qpos, sid, repl))
+        want = ref.match_local_batch([
+            LocalQuery("w", Vector3(*map(float, p)),
+                       peers[s] if s >= 0 else None, Replication(int(r)))
+            for p, s, r in zip(qpos, sid, repl)])
+        assert [set(x) for x in got] == [set(x) for x in want], step
+        assert [len(x) for x in got] == [len(x) for x in want], step
+    dev.wait_compaction()
+    stats = dev.device_stats()
+    assert stats["compactions"] > 0 and stats["compact_fetches"] > 0
+    seg = dev._segments()[0][0]
+    assert all(t.device.type == "cuda" for t in seg)

@@ -66,6 +66,13 @@ def test_port_imports_with_jax_and_the_jax_package_poisoned():
         "import worldql_server_tpu_torch.entities.plane\n"
         "import worldql_server_tpu_torch.ops.tick\n"
         "import worldql_server_tpu_torch.ops.knn\n"
+        "import worldql_server_tpu_torch.ops.index\n"
+        "import worldql_server_tpu_torch.spatial.cuda_backend\n"
+        "import worldql_server_tpu_torch.spatial.precompile\n"
+        "import worldql_server_tpu_torch.observability.device\n"
+        "import worldql_server_tpu_torch.tools.index_bench\n"
+        "from worldql_server_tpu_torch.spatial import CudaSpatialBackend\n"
+        "CudaSpatialBackend(16, device='cpu')\n"
         "import worldql_server_tpu_torch.transports.zeromq\n"
         "import worldql_server_tpu_torch.transports.http\n"
         "import worldql_server_tpu_torch.transports.websocket\n"

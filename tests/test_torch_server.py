@@ -1,17 +1,35 @@
 """The port's server end to end over real ZeroMQ, against the JAX
 package's server running the same script.
 
-Both servers boot in-process with ``--entity-sim`` on the CPU (the
-port with ``device='cpu'`` over its ``cpu`` index, the JAX package with
-``--spatial-backend tpu`` on JAX's CPU backend). Two ZMQ peers with
-fixed UUIDs register static (zero-velocity) entities with fixed UUIDs;
-once every entity is registered the world is static, so every tick
-emits the same frames. The set of distinct ``entity.frame`` wire
-frames each peer receives must be byte-for-byte equal between the two
-servers. Tolerance: exact (wire bytes).
+Both servers boot in-process on the CPU: the port with ``device='cpu'``
+over its ``cuda`` device index, the JAX package with
+``--spatial-backend tpu`` on JAX's CPU backend. Tolerance everywhere:
+exact (wire bytes).
+
+* Entity frames: two ZMQ peers with fixed UUIDs register static
+  (zero-velocity) entities with fixed UUIDs (``--entity-sim``); once
+  every entity is registered the world is static, so every tick emits
+  the same frames. The set of distinct ``entity.frame`` wire frames each
+  peer receives in the steady state must be equal between the servers.
+* AreaSubscribe → LocalMessage: three peers subscribe to cubes and each
+  sends LocalMessages in one replication mode; the frames each peer
+  receives must be equal, as a multiset, between the servers.
+
+The entity peers register one after the other. The plane assigns slots
+in arrival order and the stencil kNN breaks ties inside a shared cube
+by slot, so when the two registrations raced over two sockets each
+server could see them in its own order and resolve other neighbours —
+the cause of this test's earlier intermittent failure.
+
+Every compared window is closed by a heartbeat barrier: a peer sends a
+heartbeat and reads until its echo. The server sends one peer's frames
+and the echo down one PUSH socket, which delivers in order, so every
+frame the server sent before the echo has been read — however far the
+transport lags behind the ticks.
 
 Also: ``python -m worldql_server_tpu_torch --help`` boots, and the
-port's config rejects every subsystem it does not have yet.
+port's config accepts ``cuda`` and rejects every subsystem it does not
+have yet.
 """
 
 from __future__ import annotations
@@ -30,12 +48,17 @@ from worldql_server_tpu.engine.config import Config as JConfig
 from worldql_server_tpu.engine.server import WorldQLServer as JServer
 from worldql_server_tpu.protocol import Instruction, Message
 from worldql_server_tpu.protocol import deserialize_message
-from worldql_server_tpu.protocol.types import Entity, Vector3
-from worldql_server_tpu_torch.engine.config import Config as TConfig
+from worldql_server_tpu.protocol.types import Entity, Replication, Vector3
+from worldql_server_tpu_torch.engine.config import (
+    Config as TConfig, apply_device_boot_defaults)
 from worldql_server_tpu_torch.engine.server import WorldQLServer as TServer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEERS = (uuid.UUID(int=0x1111), uuid.UUID(int=0x2222))
+AREA_PEERS = (uuid.UUID(int=0x3331), uuid.UUID(int=0x3332),
+              uuid.UUID(int=0x3333))
+#: each server's device index: the port's cuda, the JAX package's tpu
+BACKEND = {TConfig: "cuda", JConfig: "tpu"}
 
 
 def _config(cls, **extra):
@@ -46,11 +69,21 @@ def _config(cls, **extra):
     config.zmq_server_host = "127.0.0.1"
     config.zmq_server_port = free_port()
     config.tick_interval = 0.03
+    config.spatial_backend = BACKEND[cls]
+    # the port's default; the JAX package's 'on' would also walk the
+    # query-kind kernels at boot, which neither scenario sends
+    config.query_kinds = "off"
     config.entity_sim = True
     config.entity_k = 4
     for key, value in extra.items():
         setattr(config, key, value)
     return config
+
+
+def _server(cls, **extra):
+    config = _config(cls, **extra)
+    return TServer(config, device="cpu") if cls is TConfig else \
+        JServer(config)
 
 
 def _entities(peer_index):
@@ -68,49 +101,61 @@ def _entities(peer_index):
     return out
 
 
-async def _frames(clients, plane, ticks):
-    """Distinct entity.frame wire frames each client receives while
-    ``ticks`` more ticks apply (the ticker delivers a tick's frames
-    before it applies the next one, so every counted tick is in)."""
-    frames = [set() for _ in clients]
-    target = plane.applied_ticks + ticks + 1
-
-    def keep(seen, data):
+async def _barrier(client, keep=None):
+    """Heartbeat, then read until its echo: on return every frame the
+    server sent this peer before the echo has been read (and passed to
+    ``keep``)."""
+    await client.send(Message(instruction=Instruction.HEARTBEAT))
+    while True:
+        data = await asyncio.wait_for(client.pull.recv(), 60)
         msg = deserialize_message(data)
-        if (msg.instruction == Instruction.LOCAL_MESSAGE
-                and msg.parameter == "entity.frame"):
-            seen.add(bytes(data))
+        if msg.instruction == Instruction.HEARTBEAT:
+            return
+        if keep is not None:
+            keep(msg, bytes(data))
 
-    while plane.applied_ticks < target:
-        for seen, client in zip(frames, clients):
-            try:
-                keep(seen, await asyncio.wait_for(client.pull.recv(), 0.01))
-            except asyncio.TimeoutError:
-                pass
-    for seen, client in zip(frames, clients):  # what is already queued
-        while True:
-            try:
-                keep(seen, await client.pull.recv(flags=zmq.NOBLOCK))
-            except zmq.Again:
-                break
+
+async def _wait(counter, ticks):
+    """Wait until ``counter()`` has advanced by ``ticks``."""
+    target = counter() + ticks
+    while counter() < target:
+        await asyncio.sleep(0.005)
+
+
+async def _steady_frames(clients, plane, ticks):
+    """Distinct entity.frame wire frames each client receives over
+    ``ticks`` applied ticks, between two heartbeat barriers."""
+    for client in clients:
+        await _barrier(client)  # drop whatever came before
+    frames = [set() for _ in clients]
+    await _wait(lambda: plane.applied_ticks, ticks)
+    for seen, client in zip(frames, clients):
+        await _barrier(client, lambda msg, data, seen=seen: (
+            msg.instruction == Instruction.LOCAL_MESSAGE
+            and msg.parameter == "entity.frame" and seen.add(data)))
     return frames
 
 
-async def _scenario(server):
+async def _entity_scenario(server):
     await server.start()
     try:
         port = server.config.zmq_server_port
         plane = server.entity_plane
         clients = [await ZmqClient.connect(port, peer_uuid=p) for p in PEERS]
+        # one peer after the other: the plane assigns slots in arrival
+        # order, and the stencil kNN breaks ties in a shared cube by
+        # slot, so two registrations racing over two sockets would
+        # give each server its own neighbour sets
         for i, client in enumerate(clients):
             await client.send(Message(
                 instruction=Instruction.LOCAL_MESSAGE, world_name="w",
                 entities=_entities(i),
             ))
-        while plane.entity_count < 2 * len(_entities(0)):
-            await asyncio.sleep(0.01)
-        await _frames(clients, plane, 2)  # every registration ticked
-        got = await _frames(clients, plane, 3)  # steady state
+            while plane.entity_count < (i + 1) * len(_entities(0)):
+                await asyncio.sleep(0.01)
+        # every registration has ticked once two ticks have applied
+        await _wait(lambda: plane.applied_ticks, 2)
+        got = await _steady_frames(clients, plane, 3)
         for client in clients:
             await client.close()
         return got
@@ -120,14 +165,74 @@ async def _scenario(server):
 
 def test_zmq_frames_equal_the_jax_server():
     async def both():
-        port = await _scenario(TServer(_config(TConfig), device="cpu"))
-        ref = await _scenario(JServer(_config(JConfig,
-                                              spatial_backend="tpu")))
+        port = await _entity_scenario(_server(TConfig))
+        ref = await _entity_scenario(_server(JConfig))
         return port, ref
 
-    port, ref = asyncio.run(asyncio.wait_for(both(), 120))
+    port, ref = asyncio.run(asyncio.wait_for(both(), 240))
     assert all(port) and all(ref)  # both peers received frames
     assert port == ref
+
+
+#: (peer index, cube position) subscriptions: peers 0 and 1 share cube A,
+#: peer 2 holds cube A and cube B
+_SUBS = ((0, (1.0, 2.0, 3.0)), (1, (5.0, 6.0, 7.0)), (2, (9.0, 2.0, 3.0)),
+         (2, (40.0, 2.0, 3.0)))
+#: LocalMessage positions: cube A, cube B, and a cube nobody holds
+_SPOTS = ((2.0, 3.0, 4.0), (41.0, 3.0, 4.0), (-300.0, 0.0, 0.0))
+
+
+async def _area_scenario(server, replication):
+    await server.start()
+    try:
+        port = server.config.zmq_server_port
+        clients = [await ZmqClient.connect(port, peer_uuid=p)
+                   for p in AREA_PEERS]
+        for i, pos in _SUBS:
+            await clients[i].send(Message(
+                instruction=Instruction.AREA_SUBSCRIBE, world_name="w",
+                position=Vector3(*pos)))
+        for client in clients:
+            await _barrier(client)  # subscriptions applied, notices read
+        sent = server.ticker.messages + len(clients) * len(_SPOTS)
+        for i, client in enumerate(clients):
+            for j, pos in enumerate(_SPOTS):
+                await client.send(Message(
+                    instruction=Instruction.LOCAL_MESSAGE, world_name="w",
+                    position=Vector3(*pos), parameter=f"m{i}-{j}",
+                    replication=replication, flex=bytes([i, j])))
+        while server.ticker.messages < sent:  # every one flushed
+            await asyncio.sleep(0.005)
+        got = []
+        for client in clients:
+            frames = []
+            await _barrier(client, lambda msg, data, frames=frames: (
+                msg.instruction == Instruction.LOCAL_MESSAGE
+                and frames.append(data)))
+            got.append(sorted(frames))
+        for client in clients:
+            await client.close()
+        return got
+    finally:
+        await server.stop()
+
+
+@pytest.mark.parametrize("replication", list(Replication),
+                         ids=lambda r: r.name.lower())
+def test_zmq_area_local_messages_equal_the_jax_server(replication):
+    async def both():
+        port = await _area_scenario(
+            _server(TConfig, entity_sim=False), replication)
+        ref = await _area_scenario(
+            _server(JConfig, entity_sim=False), replication)
+        return port, ref
+
+    port, ref = asyncio.run(asyncio.wait_for(both(), 240))
+    assert any(port)  # some peer received a LocalMessage
+    assert port == ref
+    if replication == Replication.ONLY_SELF:
+        # a sender subscribed to the cube hears only itself
+        assert [len(f) for f in port] == [1, 1, 2]
 
 
 def test_cli_help_boots():
@@ -138,6 +243,7 @@ def test_cli_help_boots():
     )
     assert proc.returncode == 0, proc.stderr
     assert "--entity-sim" in proc.stdout
+    assert "cuda" in proc.stdout
 
 
 def test_cli_without_a_card_exits_with_an_error():
@@ -150,6 +256,7 @@ def test_cli_without_a_card_exits_with_an_error():
     env = {k: v for k, v in os.environ.items() if k != "WQL_TORCH_DEVICE"}
     proc = subprocess.run(
         [sys.executable, "-m", "worldql_server_tpu_torch", "--entity-sim",
+         "--spatial-backend", "cuda",
          "--tick-interval", "0.05", "--store-url", "memory://",
          "--no-ws", "--no-http", "--no-zmq"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
@@ -160,24 +267,60 @@ def test_cli_without_a_card_exits_with_an_error():
 
 @pytest.mark.parametrize("field,value", [
     ("spatial_backend", "tpu"), ("spatial_backend", "sharded"),
-    ("spatial_backend", "cuda"), ("delivery_workers", 1),
+    ("delivery_workers", 1),
     ("session_ttl", 5.0), ("overload", "on"), ("query_kinds", "on"),
     ("interest", "on"), ("cluster_shards", 2), ("slo", "on"),
     ("resilience", "on"), ("index_snapshot", "idx.snap"),
 ])
 def test_config_rejects_unported(field, value):
     config = _config(TConfig, **{field: value})
-    with pytest.raises(ValueError, match="not yet ported"):
+    # 'tpu' names the JAX package's index, which the port serves as cuda
+    match = "serves it as 'cuda'" if value == "tpu" else "not yet ported"
+    with pytest.raises(ValueError, match=match):
         config.validate()
+
+
+def test_config_accepts_cuda():
+    """The device index validates, with and without the entity plane,
+    with delta ticks on and staging on."""
+    _config(TConfig).validate()
+    _config(TConfig, entity_sim=False).validate()
+    _config(TConfig, delta_ticks="on", query_staging="on").validate()
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
+        _config(TConfig, spatial_backend="gpu").validate()
 
 
 def test_default_boots_validate():
     """Every default boot works: the bare config, and --entity-sim with
-    a tick interval over the cpu index (the interim pairing)."""
+    a tick interval over the cuda index. As in the JAX package, the
+    entity plane and delta_ticks='on' refuse the cpu index, and a card
+    boots the cuda index on a 0.05 s tick."""
     TConfig().validate()
     _config(TConfig).validate()
     assert TConfig().query_kinds == "off"
-    # the server is constructible without touching a transport
+    with pytest.raises(ValueError, match="entity_sim requires a device"):
+        _config(TConfig, spatial_backend="cpu").validate()
+    with pytest.raises(ValueError, match="delta_ticks='on' requires"):
+        _config(TConfig, spatial_backend="cpu", entity_sim=False,
+                delta_ticks="on").validate()
+    card = TConfig()
+    assert apply_device_boot_defaults(
+        card, backend_explicit=False, interval_explicit=False, present=True)
+    assert (card.spatial_backend, card.tick_interval) == ("cuda", 0.05)
+    card.entity_sim = True
+    card.validate()
+    # explicit settings win, field by field; no card leaves it untouched
+    kept = TConfig()
+    assert not apply_device_boot_defaults(
+        kept, backend_explicit=True, interval_explicit=False, present=True)
+    assert not apply_device_boot_defaults(
+        kept, backend_explicit=False, interval_explicit=False,
+        present=False)
+    assert kept.spatial_backend == TConfig().spatial_backend
+    # the server is constructible without touching a transport, with
+    # the plane and the index on one device
     server = TServer(_config(TConfig), device="cpu")
     assert server.entity_plane.device.type == "cpu"
-    assert zmq.zmq_version()  # the ZMQ leg above ran on a real libzmq
+    assert server.backend.device == server.entity_plane.device
+    assert server.staging is not None  # the cuda index stages
+    assert zmq.zmq_version()  # the ZMQ legs above ran on a real libzmq

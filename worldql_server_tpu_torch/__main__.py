@@ -69,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-zmq", action="store_true")
     p.add_argument("--spatial-backend",
                    choices=["cpu", "tpu", "sharded", "cuda"],
-                   help="subscription index: only 'cpu' is ported so far "
-                        "(the others fail validation)")
+                   help="subscription index: 'cpu' (host AreaMap) or "
+                        "'cuda' (the device index; default on a card); "
+                        "'tpu' and 'sharded' fail validation")
     p.add_argument("--tick-interval", type=float)
     p.add_argument("--tick-pipeline", type=int,
                    help="max dispatched-but-undelivered ticks: 1 "
@@ -488,13 +489,15 @@ def main(argv: list[str] | None = None) -> int:
         trace.enable()
 
     config = config_from_args(args)
-    # Default device boot: with a card attached and no tick interval
-    # expressed, a bare invocation batches on a 0.05 s tick; a host
-    # without a card keeps the config untouched.
+    # Default device boot: with a card attached and no index backend
+    # expressed, a bare invocation serves the cuda index on a 0.05 s
+    # tick; a host without a card keeps the config untouched.
     from .engine.config import apply_device_boot_defaults
 
     apply_device_boot_defaults(
-        config, interval_explicit=args.tick_interval is not None,
+        config,
+        backend_explicit=args.spatial_backend is not None,
+        interval_explicit=args.tick_interval is not None,
     )
     try:
         config.validate()

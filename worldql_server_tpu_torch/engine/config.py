@@ -14,16 +14,16 @@ reference is Postgres-only; we default to SQLite so the server runs
 self-contained).
 
 Port status (ROADMAP.md): the fields are the JAX package's, so the
-flag surface is the same, but ``validate()`` rejects every setting
-whose subsystem the port does not have yet with a "not yet ported"
-error — the device index backends (``tpu``/``sharded``, and ``cuda``,
-reserved for the port's device index), the delivery plane, sessions,
-the overload governor, the query library (so ``query_kinds`` defaults
-to ``off`` here), interest management, the cluster tier, the SLO
-engine, resilience and index snapshots. The entity simulation's device
-comes from ``spatial/torchconf.py``, not from the index backend, so
-``entity_sim`` runs beside the host ``cpu`` index — an interim pairing
-until the device index is ported.
+flag surface is the same. The device index is ``cuda``
+(spatial/cuda_backend.py, the port of the JAX package's ``tpu``
+backend); ``tpu`` is refused with a pointer to it. ``validate()``
+rejects every setting whose subsystem the port does not have yet with
+a "not yet ported" error — the ``sharded`` mesh index, the delivery
+plane, sessions, the overload governor, the query library (so
+``query_kinds`` defaults to ``off`` here), interest management, the
+cluster tier, the SLO engine, resilience and index snapshots. As in
+the JAX package, ``entity_sim`` and ``delta_ticks='on'`` require the
+device index.
 """
 
 from __future__ import annotations
@@ -111,9 +111,10 @@ class Config:
     verbose: int = 0
 
     # --- rebuild-specific knobs ------------------------------------
-    # Which SpatialBackend answers proximity queries. The port serves
-    # 'cpu' only; 'tpu', 'sharded' and 'cuda' fail validation as not
-    # yet ported.
+    # Which SpatialBackend answers proximity queries: 'cpu' (the host
+    # AreaMap) or 'cuda' (the device index). 'tpu' names the JAX
+    # package's and is refused with a pointer to 'cuda'; 'sharded' is
+    # not yet ported.
     spatial_backend: str = field(
         default_factory=lambda: _env("WQL_SPATIAL_BACKEND", "cpu")
     )
@@ -280,17 +281,18 @@ class Config:
     # of the tick batch into double-buffered columnar arrays, so flush
     # dispatches with zero per-query Python. 'auto' (default) enables
     # it exactly when the spatial backend supports staged dispatch
-    # (tpu/sharded); 'off' forces the object-list path everywhere
+    # (cuda); 'off' forces the object-list path everywhere
     # (reference-equivalent); 'on' is auto plus a config error if the
     # backend can't stage (a silent fallback would hide a perf cliff).
     query_staging: str = field(
         default_factory=lambda: _env("WQL_QUERY_STAGING", "auto")
     )
-    # Boot-time capacity-tier precompilation (spatial/precompile.py):
-    # trace every reachable CSR capacity tier, pack bucket and
-    # query-cap shape against the boot index BEFORE serving, so no
-    # first-occurrence tier pays a jit trace mid-serving. On by
-    # default; only device backends (tpu/sharded) act on it.
+    # Boot-time tier walk (spatial/precompile.py): dispatch every
+    # reachable CSR capacity tier, pack bucket and query-cap shape
+    # against the boot index BEFORE serving, so no first-occurrence
+    # tier pays its allocations mid-serving; the entity plane builds
+    # its CUDA kernel here too. On by default; only the device backend
+    # (cuda) and the entity plane act on it.
     precompile_tiers: bool = field(
         default_factory=lambda: _env("WQL_PRECOMPILE_TIERS", "1") == "1"
     )
@@ -300,7 +302,7 @@ class Config:
     # + resolves per-entity kNN neighborhoods on device (ops/tick.py),
     # delivering neighbor frames through the normal fan-out path. Off
     # by default — the broker then never constructs the plane. Requires
-    # a device backend ('tpu'/'sharded') and tick_interval > 0.
+    # the device backend ('cuda') and tick_interval > 0.
     entity_sim: bool = field(
         default_factory=lambda: _env("WQL_ENTITY_SIM", "0") == "1"
     )
@@ -397,9 +399,8 @@ class Config:
     # churn stream, a persistent incrementally-updated device hash,
     # and result reuse (a query/entity whose neighborhood is clean
     # replays last tick instead of recomputing). 'auto' (default)
-    # enables it exactly where it is proven: the device backends —
-    # single-chip TPU, and the sharded mesh via per-shard flat-region
-    # replay — and pow2-cube entity planes; 'off' pins the full
+    # enables it exactly where it is proven: the device backend
+    # (cuda) and pow2-cube entity planes; 'off' pins the full
     # recompute pipeline byte for byte; 'on' is auto plus a config
     # error where delta ticks cannot run (the cpu backend).
     delta_ticks: str = field(
@@ -475,11 +476,10 @@ class Config:
     query_density_top_n: int = field(
         default_factory=lambda: int(_env("WQL_QUERY_DENSITY_TOP_N", "16"))
     )
-    # Device telemetry (observability/device.py): jit compile/retrace
-    # counters + flight-recorder loose spans, the per-tick
-    # encode/h2d/compute/d2h timing split, and the live
-    # device-buffer-bytes gauge. On by default — it only activates
-    # when the spatial backend exposes device stats (tpu/sharded), and
+    # Device telemetry (observability/device.py): the per-tick
+    # encode/h2d/compute/d2h timing split and the live
+    # device-memory gauge (compile counters read 0: no jit). On by default — it only activates
+    # when the spatial backend exposes device stats (cuda), and
     # its tick-path cost is one small dict diff per collect.
     device_telemetry: bool = field(
         default_factory=lambda: _env("WQL_DEVICE_TELEMETRY", "1") == "1"
@@ -590,13 +590,18 @@ class Config:
             else:
                 seen[port] = name
 
-        if self.spatial_backend in ("tpu", "sharded", "cuda"):
+        if self.spatial_backend == "tpu":
             errors.append(
-                f"spatial_backend '{self.spatial_backend}' is not yet "
-                "ported to worldql_server_tpu_torch — use 'cpu'"
+                "spatial_backend 'tpu' is the JAX package's device index "
+                "— worldql_server_tpu_torch serves it as 'cuda'"
             )
-        elif self.spatial_backend != "cpu":
-            errors.append("spatial_backend must be 'cpu'")
+        elif self.spatial_backend == "sharded":
+            errors.append(
+                "spatial_backend 'sharded' is not yet ported to "
+                "worldql_server_tpu_torch — use 'cuda'"
+            )
+        elif self.spatial_backend not in ("cpu", "cuda"):
+            errors.append("spatial_backend must be 'cpu' or 'cuda'")
         errors.extend(self._unported())
         if (
             os.environ.get("WQL_DIST_COORDINATOR")
@@ -617,7 +622,7 @@ class Config:
         if self.query_staging == "on" and self.spatial_backend == "cpu":
             errors.append(
                 "query_staging='on' requires a staging-capable spatial "
-                "backend ('tpu' or 'sharded'); the CPU backend resolves "
+                "backend ('cuda'); the CPU backend resolves "
                 "per query — use 'auto' to enable staging only when "
                 "supported"
             )
@@ -676,6 +681,12 @@ class Config:
         if self.query_density_top_n < 1:
             errors.append("query_density_top_n must be >= 1")
         if self.entity_sim:
+            if self.spatial_backend == "cpu":
+                errors.append(
+                    "entity_sim requires a device spatial backend "
+                    "('cuda') — the simulation tick integrates and "
+                    "resolves kNN on device"
+                )
             if self.tick_interval <= 0:
                 errors.append(
                     "entity_sim requires tick_interval > 0 — the "
@@ -731,12 +742,11 @@ class Config:
             errors.append("lod_far_every_k must be >= 1")
         if self.peer_bandwidth_bytes < 0:
             errors.append("peer_bandwidth_bytes must be >= 0 (0 = off)")
-        if self.delta_ticks == "on" and not self.entity_sim:
+        if self.delta_ticks == "on" and self.spatial_backend == "cpu":
             errors.append(
-                "delta_ticks='on' requires entity_sim — in the port only "
-                "the entity plane runs delta ticks (the cpu index "
-                "resolves per query); use 'auto' to enable delta ticks "
-                "only where supported"
+                "delta_ticks='on' requires a device spatial backend "
+                "('cuda') — the cpu backend resolves per query; use "
+                "'auto' to enable delta ticks only where supported"
             )
         if not 0 < self.delta_rebuild_threshold <= 1:
             errors.append(
@@ -861,25 +871,29 @@ def accelerator_present(probe_paths=_DEVICE_NODES) -> bool:
 def apply_device_boot_defaults(
     config: Config,
     *,
+    backend_explicit: bool,
     interval_explicit: bool,
     present: bool | None = None,
 ) -> bool:
     """Default device boot of the port: with a card attached and no
-    tick interval expressed (no flag, no env var), a bare ``python -m
-    worldql_server_tpu_torch`` batches on a 0.05 s tick, the interval
-    the entity simulation needs. The index stays ``cpu`` (the only one
-    the port has). Explicit settings always win; on a host without a
-    card the config is returned untouched. Returns whether the default
-    was applied."""
-    if interval_explicit or os.environ.get("WQL_TICK_INTERVAL"):
+    index backend expressed (no flag, no env var), a bare ``python -m
+    worldql_server_tpu_torch`` serves the batched device engine —
+    ``spatial_backend='cuda'`` and, unless an interval was expressed,
+    ``tick_interval=0.05``. Explicit settings always win, field by
+    field; on a host without a card the config is returned untouched.
+    Returns whether the defaults were applied."""
+    if backend_explicit or os.environ.get("WQL_SPATIAL_BACKEND"):
         return False
     if present is None:
         present = accelerator_present()
     if not present:
         return False
-    config.tick_interval = 0.05
+    config.spatial_backend = "cuda"
+    if not interval_explicit and not os.environ.get("WQL_TICK_INTERVAL"):
+        config.tick_interval = 0.05
     logger.info(
-        "CUDA card detected — defaulting to the batched tick "
-        "(--tick-interval %g)", config.tick_interval,
+        "CUDA card detected — defaulting to the batched device engine "
+        "(--spatial-backend cuda --tick-interval %g)",
+        config.tick_interval,
     )
     return True

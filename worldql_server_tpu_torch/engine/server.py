@@ -6,12 +6,15 @@ backend, record store and router, starts the enabled transports, and
 runs the ZeroMQ-style staleness sweeper (outgoing.rs:28-47,132-150).
 One asyncio event loop carries the reference's task/channel mesh.
 
-What the port wires today (ROADMAP.md lists the rest): the host ``cpu``
-subscription index, the entity simulation plane on the card
+What the port wires today (ROADMAP.md lists the rest): the
+subscription index — the device ``cuda`` index (spatial/cuda_backend.py,
+with delta ticks, staged dispatch, the boot tier walk and device
+telemetry) or the host ``cpu`` AreaMap — the entity simulation plane
 (``--entity-sim``: ``entities/`` + ``ops/tick.py`` + the CUDA kNN
-kernel), the ticker, router, transports, durability and the flight
-recorder. ``Config.validate()`` rejects the subsystems that are not
-ported yet, so none of their wiring exists here.
+kernel) on the same device as the index, the ticker, router,
+transports, durability and the flight recorder. ``Config.validate()``
+rejects the subsystems that are not ported yet, so none of their wiring
+exists here.
 """
 
 from __future__ import annotations
@@ -32,9 +35,20 @@ from .router import Router
 logger = logging.getLogger(__name__)
 
 
-def build_backend(config: Config) -> SpatialBackend:
-    """The subscription index: the host ``cpu`` AreaMap (the only one
-    the port has; validate() rejects the others)."""
+def build_backend(config: Config, device=None) -> SpatialBackend:
+    """The subscription index: the device index on ``device`` (the card
+    unless the caller asks for the CPU) for ``cuda``, else the host
+    AreaMap."""
+    if config.spatial_backend == "cuda":
+        from ..spatial.cuda_backend import CudaSpatialBackend
+
+        backend = CudaSpatialBackend(config.sub_region_size, device=device)
+        if config.delta_ticks != "off":
+            backend.configure_delta_ticks(config.delta_ticks)
+            backend.delta_rebuild_threshold = (
+                config.delta_rebuild_threshold
+            )
+        return backend
     return CpuSpatialBackend(config.sub_region_size)
 
 
@@ -59,7 +73,8 @@ class WorldQLServer:
             )
         elif config.failpoints_seed is not None:
             failpoints.registry.seed(config.failpoints_seed)
-        self.backend = backend if backend is not None else build_backend(config)
+        self.backend = (backend if backend is not None
+                        else build_backend(config, device=device))
         self.store = store if store is not None else open_store(
             config.store_url, config
         )
@@ -84,6 +99,16 @@ class WorldQLServer:
                 context=self.loop_monitor.snapshot,
             )
             self.tracer.on_trace = self.recorder.record
+        # Device telemetry (observability/device.py): the per-tick
+        # encode/h2d/compute/d2h split and the live-memory gauge, for
+        # backends with a device side (device_stats)
+        self.device_telemetry = None
+        if config.device_telemetry and hasattr(self.backend, "device_stats"):
+            from ..observability.device import DeviceTelemetry
+
+            self.device_telemetry = DeviceTelemetry(
+                metrics=self.metrics, backend=self.backend,
+            )
         # Escalation contract: when a CRITICAL supervised task (ticker
         # pump, ZMQ recv loop, durability applier) exhausts its restart
         # budget the server requests its own clean shutdown.
@@ -99,7 +124,8 @@ class WorldQLServer:
         )
         # Entity simulation plane (entities/): the device-resident
         # moving-object workload, on the card unless ``device`` (or
-        # WQL_TORCH_DEVICE) asks for the CPU. Constructed only in
+        # WQL_TORCH_DEVICE) asks for the CPU — the same device as the
+        # index, which the plane checks. Constructed only in
         # --entity-sim mode (validate() guarantees a ticker for it).
         self.entity_plane = None
         self.entity_ingest = None
@@ -136,7 +162,7 @@ class WorldQLServer:
             from .ticker import TickBatcher
 
             # Columnar query staging binds exactly when the backend can
-            # stage ('auto'); the cpu index cannot, so it stays off here
+            # stage ('auto'): the cuda index can, the cpu one cannot
             if (
                 config.query_staging != "off"
                 and self.backend.supports_staged_dispatch()
@@ -149,6 +175,7 @@ class WorldQLServer:
                 max_batch=config.max_batch,
                 metrics=self.metrics, pipeline=config.tick_pipeline,
                 supervisor=self.supervisor, tracer=self.tracer,
+                device_telemetry=self.device_telemetry,
                 staging=self.staging,
                 entity_plane=self.entity_plane,
             )
@@ -220,10 +247,15 @@ class WorldQLServer:
                     ),
                 },
             )
-        if self.entity_plane is not None and self.config.precompile_tiers:
+        if self.config.precompile_tiers and (
+            self.entity_plane is not None
+            or hasattr(self.backend, "_segments")
+        ):
             self.metrics.gauge("precompile", lambda: self.precompile_stats)
         if self.durability is not None:
             self.metrics.gauge("durability", self.durability_status)
+        if self.device_telemetry is not None:
+            self.metrics.gauge("device", self.device_telemetry.stats)
         # Supervision + fault-injection accounting: restart/crash
         # counters and the tasks_unhealthy gauge; per-failpoint fire
         # counts so no injected fault is ever invisible in /metrics.
@@ -257,26 +289,31 @@ class WorldQLServer:
         self.shutdown_requested.set()
 
     def _delta_status(self) -> dict:
-        """Temporal-coherence accounting (the ``delta`` gauge): the
-        entity plane's reuse counters and the cumulative reuse fraction
-        — how much of the world the engine did NOT recompute since
-        boot. The cpu index has no query-path delta ticks."""
+        """Temporal-coherence accounting (the ``delta`` gauge):
+        query-path + sim-path reuse counters and the cumulative reuse
+        fraction — how much of the world the engine did NOT recompute
+        since boot (the cpu index has no query-path delta ticks)."""
+        q_r = int(getattr(self.backend, "delta_reused", 0))
+        q_c = int(getattr(self.backend, "delta_recomputed", 0))
+        q_f = int(getattr(self.backend, "delta_fallbacks", 0))
         s_r = s_c = s_f = f_r = 0
         if self.entity_plane is not None:
             s_r = self.entity_plane.delta_reused
             s_c = self.entity_plane.delta_recomputed
             s_f = self.entity_plane.delta_fallbacks
             f_r = self.entity_plane.frames_reused
-        total = s_r + s_c
+        total = q_r + q_c + s_r + s_c
         return {
-            "query_reused": 0,
-            "query_recomputed": 0,
-            "query_fallbacks": 0,
+            "query_reused": q_r,
+            "query_recomputed": q_c,
+            "query_fallbacks": q_f,
             "sim_reused": s_r,
             "sim_recomputed": s_c,
             "sim_fallbacks": s_f,
             "frames_reused": f_r,
-            "reuse_fraction": round(s_r / total, 4) if total else 0.0,
+            "reuse_fraction": (
+                round((q_r + s_r) / total, 4) if total else 0.0
+            ),
         }
 
     def durability_status(self) -> dict | None:
@@ -319,7 +356,7 @@ class WorldQLServer:
             self.durability.start(supervisor=self.supervisor)
             if self.config.checkpoint_interval > 0:
                 self.supervisor.spawn("checkpoint", self._checkpoint_loop)
-        self._warm_up_entity_plane()
+        self._precompile_tiers()
 
         if self.loop_monitor is not None:
             # loop-health probe: supervised but not critical
@@ -354,15 +391,32 @@ class WorldQLServer:
         self._started.set()
         logger.info("worldql-server-tpu-torch started")
 
-    def _warm_up_entity_plane(self) -> None:
-        """Boot warm-up of the entity plane before any transport
-        accepts traffic: build and load the CUDA kernel and run the
-        tick at the capacity tier and the delta ladder, so no tick
-        pays a build. A failure here fails the boot — a server whose
-        kernel does not build must not serve."""
-        if self.entity_plane is None or not self.config.precompile_tiers:
+    def _precompile_tiers(self) -> None:
+        """Boot-time tier walk before any transport accepts traffic:
+        the index's capacity tiers (spatial/precompile.py) against the
+        boot index, then the entity plane's — build and load the CUDA
+        kernel, run the tick at the capacity tier and the delta ladder
+        — so no tick pays a build or a first allocation. A failure here
+        fails the boot: a server whose device path does not run must
+        not serve."""
+        if not self.config.precompile_tiers:
             return
-        self.precompile_stats = {"entities": self.entity_plane.precompile()}
+        if hasattr(self.backend, "_segments"):
+            from ..spatial.precompile import precompile_tiers
+
+            max_batch = (
+                self.ticker.max_batch if self.ticker is not None
+                else 16_384
+            )
+            self.precompile_stats = precompile_tiers(
+                self.backend, max_batch=max_batch
+            )
+        if self.entity_plane is not None:
+            stats = self.entity_plane.precompile()
+            if self.precompile_stats is None:
+                self.precompile_stats = {"entities": stats}
+            else:
+                self.precompile_stats["entities"] = stats
 
     async def _sweep_stale_once(self) -> int:
         """One staleness pass: evict every silent heartbeat-tracked

@@ -198,6 +198,14 @@ class EntityPlane:
         device=None,
     ):
         self.device = resolve_device(device)
+        index_device = getattr(backend, "device", None)
+        if index_device is not None and index_device != self.device:
+            # the plane's churn feeds the device index directly
+            # (bulk_move_subscriptions): both live on one device
+            raise ValueError(
+                f"entity plane on {self.device} but its subscription "
+                f"index on {index_device}: both must share one device"
+            )
         self.backend = backend
         self.peer_map = peer_map
         self.cube_size = cube_size
@@ -1351,8 +1359,8 @@ class EntityPlane:
         decide which moves actually touch the index (co-located
         entities of one peer share a row); the surviving adds/removes
         go down vectorized, grouped by world, via
-        ``bulk_move_subscriptions`` when the backend has it
-        (TPU/sharded) or per-row mutations otherwise."""
+        ``bulk_move_subscriptions`` when the backend has it (the cuda
+        index) or per-row mutations otherwise."""
         old_cubes = self._cube[moved_slots].copy()
         wids = self._wid[moved_slots]
         pids = self._pid[moved_slots]

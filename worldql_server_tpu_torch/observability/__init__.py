@@ -5,8 +5,8 @@ records per-stage wall time for every tick and message,
 ``flight_recorder`` keeps the last N tick traces and auto-dumps slow
 ones, ``export`` renders Chrome-trace JSON for ``GET /debug/ticks``
 and hosts the ``torch.profiler`` hook, ``loop_monitor`` separates a
-blocked event loop from a slow device. The JAX package's ``device``
-telemetry (jit compile/retrace attribution) is not part of the port.
+blocked event loop from a slow device, and ``device`` tags each tick
+with the index's encode/h2d/compute/d2h split.
 """
 
 from .flight_recorder import FlightRecorder

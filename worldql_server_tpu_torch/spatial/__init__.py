@@ -11,7 +11,23 @@ from .quantize import (
     table_bounds,
 )
 
+
+def __getattr__(name):
+    # the device index imports ops/, whose modules import this
+    # package's hashing: resolved on first use to break the cycle
+    if name == "CudaSpatialBackend":
+        from .cuda_backend import CudaSpatialBackend
+
+        return CudaSpatialBackend
+    if name == "precompile_tiers":
+        from .precompile import precompile_tiers
+
+        return precompile_tiers
+    raise AttributeError(name)
+
+
 __all__ = [
+    "CudaSpatialBackend",
     "coord_clamp",
     "coord_clamp_batch",
     "cube_coords",
@@ -21,5 +37,6 @@ __all__ = [
     "clamp_table_size",
     "region_coords",
     "region_coords_batch",
+    "precompile_tiers",
     "table_bounds",
 ]

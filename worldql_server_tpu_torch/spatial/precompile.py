@@ -1,0 +1,146 @@
+"""Boot-time tier walk for the device fan-out engine.
+
+Port of the JAX package's ``spatial/precompile.py``. There the walk
+traces every reachable jit shape before serving; torch compiles
+nothing, but the first launch at a new shape still pays for it — the
+caching allocator grows its pools, and the sort and scan ops size their
+workspaces. So the port keeps the same walk over the same power-of-two
+tiers: every query-cap tier up to ``max_batch``, the CSR slot-capacity
+ladder each can request (zone-A floor upward, below the dense ceiling),
+and the pack-bucket tiers of the on-device result compaction, each
+dispatched once against the backend's real device segments (dummy
+queries that match nothing; results discarded) and synchronized, so
+the boot ends with the pools warm.
+
+The stats keys are the JAX ones, so the ``precompile`` gauge reads the
+same: ``new_variants`` and ``families`` count jit compiles there and
+are 0 and ``{}`` here, and the query-kind leg (``kind_dispatches``) is
+0 because the query library is not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from .hashing import next_pow2
+
+logger = logging.getLogger(__name__)
+
+#: zone-A identity-row width (ops/index.CSR_ROW)
+_CSR_ROW = 8
+
+
+def query_cap_ladder(backend, max_batch: int, min_batch: int | None):
+    """Descending, deduped query-capacity tiers the ticker can reach:
+    ``next_pow2(m)`` for every batch size up to ``max_batch`` collapses
+    to a halving ladder; ``min_batch`` floors it."""
+    if min_batch is None:
+        min_batch = max(64, max_batch // 8)
+    ms, m = [], max(1, int(max_batch))
+    while m >= min_batch:
+        ms.append(m)
+        m //= 2
+    if not ms:
+        ms.append(max(1, int(max_batch)))
+    seen, out = set(), []
+    for m in ms:
+        cap = backend._query_cap(m)
+        if cap not in seen:
+            seen.add(cap)
+            out.append((m, cap))
+    return out
+
+
+def _sync(backend) -> None:
+    if backend.device.type == "cuda":
+        torch.cuda.synchronize(backend.device)
+
+
+#: CSR slot-capacity doublings walked above each query tier's zone-A
+#: floor (the adaptive delivery cap climbs that ladder at runtime)
+T_TIERS = 4
+#: cap on the shapes walked, largest first
+MAX_DISPATCHES = 64
+
+
+def precompile_tiers(backend, *, max_batch: int) -> dict:
+    """Dispatch every reachable hot-path shape once before serving.
+    Returns a stats dict."""
+    t0 = time.perf_counter()
+    # delta ticks dispatch the DIRTY fraction of each batch at its own
+    # (small) query tier — then the walk goes all the way down
+    min_batch = 8 if backend._delta_ticks else None
+    backend.flush()
+    segs, ks, kinds = backend._segments()
+    empty = {"new_variants": 0, "families": {}, "kind_dispatches": 0}
+    if not segs:
+        logger.info(
+            "tier walk skipped: empty index (no device segments)"
+        )
+        return {"skipped": "empty-index", "dispatches": 0,
+                "pack_calls": 0, "wall_ms": 0.0, **empty}
+
+    nseg = len(segs)
+    base_cap = backend._delivery_cap
+    min_bucket = backend.compact_min_bucket
+    dispatches = pack_calls = skipped = 0
+    budget = MAX_DISPATCHES
+    #: dense [M, K] tables above this many lanes are a memory hazard to
+    #: build speculatively — serving only reaches them through the rare
+    #: overflow re-resolve
+    dense_lane_budget = 1 << 24
+
+    for m, qcap in query_cap_ladder(backend, max_batch, min_batch):
+        if dispatches + pack_calls >= budget:
+            skipped += 1
+            continue
+        qtuple = backend._prepare_queries(
+            np.full(m, -1, np.int32),
+            np.zeros((m, 3), np.float64),
+            np.full(m, -1, np.int32),
+            np.zeros(m, np.int8),
+        )
+        ceiling = next_pow2(m * sum(ks))
+        zone_floor = next_pow2(_CSR_ROW * qcap * nseg + 64)
+        current = next_pow2(max(base_cap, zone_floor))
+        if qcap * sum(ks) <= dense_lane_budget:
+            backend._dispatch(qtuple, segs, ks, kinds)
+            _sync(backend)
+            dispatches += 1
+        top = max(current, zone_floor) << (T_TIERS - 1)
+        t_cap = zone_floor
+        while t_cap < ceiling and t_cap <= top:
+            cap = t_cap
+            t_cap *= 2
+            if dispatches + pack_calls >= budget:
+                skipped += 1
+                break
+            result = backend._dispatch_csr(qtuple, segs, ks, kinds, cap)
+            int(result[2])  # synchronize: the boot ends warm
+            dispatches += 1
+            bucket = min_bucket
+            while bucket * 2 <= cap:
+                if dispatches + pack_calls >= budget:
+                    skipped += 1
+                    break
+                backend._compact_fetch(result[0], result[1], bucket, cap)
+                pack_calls += 1
+                bucket *= 2
+
+    stats = {
+        "dispatches": dispatches,
+        "pack_calls": pack_calls,
+        "skipped_by_budget": skipped,
+        "wall_ms": round((time.perf_counter() - t0) * 1e3, 1),
+        **empty,
+    }
+    logger.info(
+        "tier walk: %d dispatch + %d pack shapes in %.0f ms%s",
+        dispatches, pack_calls, stats["wall_ms"],
+        f" ({skipped} skipped by budget)" if skipped else "",
+    )
+    return stats
