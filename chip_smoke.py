@@ -5,9 +5,10 @@ Run from the repository root on a host with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds ``native/libwqlcodec.so`` with ``make`` when it is missing
-(before importing the port) and every CUDA kernel of the port from
-``worldql_server_tpu_torch/csrc/`` with ``nvcc``, then:
+The port builds ``native/libwqlcodec.so`` with ``make`` when it is
+missing, at its first import of ``protocol``; this script builds every
+CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
+``nvcc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the kernels, all sources in parallel, and prints ptxas's
@@ -23,22 +24,33 @@ It builds ``native/libwqlcodec.so`` with ``make`` when it is missing
 5. runs every op of the device subscription index (``ops/index.py``,
    K1–K6) on the card and on the CPU at the index's full width —
    1,048,576 rows of the BASELINE config-5 Zipf crowd, 16,384 queries —
-   bit-equal, and times each on the card;
+   bit-equal, and times each on the card; then the query library's
+   stencil kernels (K10 ``queries/knn.py``, K11 ``queries/geometry.py``)
+   at 4,096 rows x the 343-cube stencil, card == CPU bit for bit;
 6. fan-out at config 5 on ``CudaSpatialBackend``: bulk load, compaction
    drained, the boot tier walk, 24 pipelined ticks of 16,384 staged
    queries collected on a worker thread as the ticker collects them
    (sampled ticks equal to the port's cpu index), the tick p50/p99 and
    its encode/h2d/compute/d2h split; then 5 more ticks under
    ``torch.profiler``, printing the top device ops with their counts;
+   then the query library at BASELINE config 12: 1,000,000 subscriptions
+   in 4 worlds, pure cone / raycast / knn / density batches of 4,096
+   queries, the mixed batch and a pure-radius one, p50/p99 wall and
+   probe rows per batch, sampled lanes equal to the cpu index;
 7. config-2 churn: 10,000 random-walk clients, 50 ticks of bulk
    remove + add, flush and ``match_arrays_async`` — fan-out equal to the
-   cpu index's every tick;
+   cpu index's every tick; then the same clients through
+   ``ResilientBackend(CudaSpatialBackend)`` for 12 ticks with
+   ``backend.dispatch`` and ``backend.collect`` failpoints fired:
+   containment, rebuilds onto the card, then the failover to the CPU
+   mirror, fan-out equal to the cpu index's every tick;
 8. LocalMessage through the server as a bare ``python -m
    worldql_server_tpu_torch`` boots it on a card (cuda index, 0.05 s
    tick, staged dispatch): the 10,000 config-2 clients join with
    in-memory sinks, subscribe through the router and send one
    LocalMessage each a tick for 10 ticks; frames per peer per tick equal
-   what the cpu index resolves;
+   what the cpu index resolves; then one query of each kind, whose
+   reply frames equal a cpu-index server's byte for byte;
 9. drives the entity-sim main path: ``Config`` → ``WorldQLServer`` as
    ``python -m worldql_server_tpu_torch --entity-sim`` builds them on a
    card (the cuda index, the plane on the same card), 64 peers with
@@ -62,7 +74,6 @@ import asyncio
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -97,15 +108,18 @@ def phase_card(torch):
 
 
 def build_native_codec():
-    """``make -C native`` when the library is missing. Runs before any
-    module of the port is imported: the wire codec looks for the
-    library once, when ``protocol`` is first imported (``ops/index.py``
-    imports it), and would otherwise fall back to the ``flatbuffers``
-    package, which the card host does not have."""
+    """The wire codec's native library: the port builds it at its first
+    import of ``protocol`` when it is missing
+    (``protocol/native_codec.py::ensure_built``). Without it the codec
+    would need the ``flatbuffers`` package, which the card host does
+    not have, so a codec that did not load fails the run."""
     t0 = time.perf_counter()
-    if not os.path.exists(os.path.join(REPO, "native", "libwqlcodec.so")):
-        subprocess.run(["make", "-C", os.path.join(REPO, "native")],
-                       check=True, capture_output=True)
+    built = os.path.exists(os.path.join(REPO, "native", "libwqlcodec.so"))
+    from worldql_server_tpu_torch.protocol import codec
+
+    if codec._native is None:
+        raise AssertionError("native/libwqlcodec.so did not build or load")
+    if not built:
         print(f"native codec built in {time.perf_counter() - t0:.2f} s")
 
 
@@ -662,6 +676,327 @@ def phase_churn(torch, n_ticks=50, n=10_000, device=None):
     return report
 
 
+@phase("query kernels cuda vs cpu")
+def phase_query_kernels(torch, m=4096, radius=3):
+    """K10 and K11, the query library's stencil kernels (torch ops), on
+    the card and on the CPU from the same seeded parameters at the
+    serving width: 4,096 rows against the full r=3 stencil of 343 cubes
+    (cube 16). Bit-equal outputs, on CUDA tensors; CUDA-event median of
+    10 after an L2-evicting read."""
+    from worldql_server_tpu_torch.queries import geometry, knn
+    from worldql_server_tpu_torch.queries.stencil import stencil_offsets
+    from worldql_server_tpu_torch.tools.index_bench import (
+        KIND_IDS, kind_cols)
+    from worldql_server_tpu_torch.tools.knn_bench import cuda_time_ms
+
+    off = stencil_offsets(radius)
+    host = {"geom": torch.from_numpy(geometry.stencil_geometry(off, 16)),
+            "off": torch.from_numpy(off.astype(np.float64))}
+    card = {key: t.cuda() for key, t in host.items()}
+    calls = (
+        ("_cone_mask_kernel (K11)", "cone",
+         lambda p, s: (geometry._cone_mask_kernel(p, s["geom"]),)),
+        ("_density_mask_kernel (K11)", "density",
+         lambda p, s: (geometry._density_mask_kernel(p, s["off"]),)),
+        ("_knn_order_kernel (K10)", "knn",
+         lambda p, s: knn._knn_order_kernel(p, s["geom"])),
+    )
+    rng = np.random.default_rng(SEED + 12)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for name, kind, fn in calls:
+        params = torch.from_numpy(kind_cols(rng, m, KIND_IDS[kind])[1])
+        p_card = params.cuda()
+        got, want = fn(p_card, card), fn(params, host)
+        torch.cuda.synchronize()
+        if not all(a.device.type == "cuda" and torch.equal(a.cpu(), b)
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"query kernel {name}: card != cpu")
+        ms = cuda_time_ms(lambda: fn(p_card, card), 10, flush)
+        t0 = time.perf_counter()
+        fn(params, host)
+        row = {"op": name, "rows": m, "stencil": int(off.shape[0]),
+               "ms": ms, "cpu_ms": (time.perf_counter() - t0) * 1e3,
+               "out_bytes": sum(a.numel() * a.element_size() for a in got)}
+        print("query kernel", json.dumps(row), flush=True)
+        rows.append(row)
+    print(f"query kernels: card == cpu bit for bit (tolerance: exact) at "
+          f"[{m}, {off.shape[0]}], outputs on the card")
+    return rows
+
+
+@phase("query library config 12")
+def phase_queries(torch, n_subs=1_000_000, m=4096, reps=5, device=None):
+    """BASELINE config 12 (``bench.py::bench_config12``) on the cuda
+    index: 1,000,000 Zipf-crowd subscriptions in 4 worlds (seed 17), a
+    staged batch of 4,096 queries from subscribers' positions — pure
+    cone, raycast, knn and density batches, the mixed batch (radius and
+    the four kinds interleaved) and a pure-radius batch of the same m —
+    each dispatched and collected ``reps`` times after one warm run:
+    p50/p99 wall and probe rows per batch, the host expansion's share
+    (``expand_staged`` alone), and the mixed batch once under
+    torch.profiler (device busy share). The K10/K11 calls of the timed
+    runs are counted; 12 lanes of each kind of the mixed batch are held
+    against the cpu index (the oracles)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.queries import geometry, knn
+    from worldql_server_tpu_torch.queries.expand import expand_staged
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.precompile import precompile_tiers
+    from worldql_server_tpu_torch.tools.index_bench import (
+        KIND_IDS, build_index, kind_cols, mixed_cols, query_results_match)
+
+    n_worlds = 4
+    rng = np.random.default_rng(17)
+    dev = CudaSpatialBackend(16, device=device)
+    t0 = time.perf_counter()
+    peers, positions, world_ids = build_index(dev, rng, n_subs, n_worlds)
+    dev.flush()
+    dev.wait_compaction()
+    load_s = time.perf_counter() - t0
+    senders = rng.integers(0, len(peers), m)
+    wid = np.array([dev._world_ids[f"world_{w}"]
+                    for w in world_ids[senders]], np.int32)
+    sid = np.array([dev._peer_ids[peers[s]] for s in senders], np.int32)
+    pos = np.ascontiguousarray(positions[senders], np.float64)
+    repl = np.full(m, int(Replication.EXCEPT_SELF), np.int8)
+    batches = {name: kind_cols(rng, m, kid) for name, kid in KIND_IDS.items()}
+    batches["mixed"] = mixed_cols(rng, m)
+    batches["radius"] = (None, None)
+    t0 = time.perf_counter()
+    walk = precompile_tiers(dev, max_batch=m)
+    walk_s = time.perf_counter() - t0
+
+    def run(kinds, params):
+        t0 = time.perf_counter()
+        handle = dev.dispatch_staged_batch(wid, pos, sid, repl, kinds, params)
+        out = dev.collect_local_batch(handle)
+        probes = handle[1][1].probe_owner.shape[0] if kinds is not None else m
+        return out, (time.perf_counter() - t0) * 1e3, int(probes)
+
+    for kinds, params in batches.values():
+        run(kinds, params)  # warm: first use of each probe tier
+    expansions0 = dev.kind_expansions
+    for fn in (geometry.cone_mask, geometry.density_mask, knn.knn_order):
+        fn.launches = 0  # the timed runs start here
+    report = {}
+    outputs = {}
+    for name, (kinds, params) in batches.items():
+        walls = []
+        for _ in range(reps):
+            out, ms, probes = run(kinds, params)
+            walls.append(ms)
+        outputs[name] = out
+        report[name] = {**_ms_stats(walls), "probe_rows": probes,
+                        "lanes": sum(len(r.peers) if hasattr(r, "extra")
+                                     else len(r) for r in out)}
+        print(f"config 12 {name}: {json.dumps(report[name])}", flush=True)
+    launches = {"cone_mask": geometry.cone_mask.launches,
+                "density_mask": geometry.density_mask.launches,
+                "knn_order": knn.knn_order.launches}
+    expansions = dev.kind_expansions - expansions0
+    if expansions <= 0 or min(launches.values()) <= 0:
+        raise AssertionError(f"kind path not driven: {expansions} "
+                             f"expansions, kernel calls {launches}")
+    for name, (kinds, params) in batches.items():
+        if kinds is not None:
+            t0 = time.perf_counter()
+            expand_staged(wid, pos, sid, repl, kinds, params, cube_size=16,
+                          device=dev.device)
+            report[name]["expand_ms"] = (time.perf_counter() - t0) * 1e3
+    top = None
+    if dev.device.type == "cuda":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(*batches["mixed"])
+            torch.cuda.synchronize()
+        top = _top_device_ops(prof, (time.perf_counter() - t0) * 1e3)
+        if top is not None:
+            print(f"profile of the mixed batch: device busy "
+                  f"{top['device_busy_ms']:.3f} ms of {top['wall_ms']:.3f} "
+                  f"ms wall ({100 * top['device_busy_share']:.2f}%)")
+            for r in top["top_device"][:6]:
+                print(f"profile device {r['self_ms']:10.3f} ms  "
+                      f"x{r['count']:<5} {r['name']}")
+
+    t0 = time.perf_counter()
+    cpu = CpuSpatialBackend(16)
+    build_index(cpu, np.random.default_rng(17), n_subs, n_worlds)
+    cpu_load_s = time.perf_counter() - t0
+    kinds, params = batches["mixed"]
+    sample = [i for kid in (0, *KIND_IDS.values())
+              for i in np.flatnonzero(kinds == kid)[:12]]
+    for i in sample:
+        want = cpu.match_local_batch([LocalQuery(
+            f"world_{world_ids[senders[i]]}", Vector3(*map(float, pos[i])),
+            peers[senders[i]], Replication.EXCEPT_SELF, kind=int(kinds[i]),
+            params=tuple(params[i]))])[0]
+        if not query_results_match(outputs["mixed"][i], want):
+            raise AssertionError(
+                f"config 12 mixed lane {i} (kind {kinds[i]}) differs from "
+                f"the cpu index: {outputs['mixed'][i]!r} vs {want!r}")
+    summary = {
+        "subscriptions": dev.subscription_count(), "worlds": n_worlds,
+        "queries": m, "reps": reps, "load_s": load_s,
+        "tier_walk_s": walk_s, "tier_walk": walk,
+        "kind_expansions": expansions, "kernel_calls": launches,
+        "device": str(dev.device), "lanes_checked": len(sample),
+        "cpu_index_load_s": cpu_load_s, "batches": report,
+        "mixed_profile": top,
+    }
+    print("queries", json.dumps(summary), flush=True)
+    print(f"config 12: {len(sample)} sampled lanes of the mixed batch "
+          "equal the cpu index (tolerance: exact)")
+    return summary
+
+
+@phase("resilience on the cuda index")
+def phase_resilience(torch, n=10_000, n_ticks=12, device=None):
+    """``ResilientBackend(CudaSpatialBackend)`` under config 2's 10,000
+    random-walk clients: each tick bulk remove + add of the movers,
+    flush, and a staged batch of one LocalMessage query per client with
+    the ticker's fallback pairs. ``backend.dispatch`` fires on tick 2
+    and ``backend.collect`` on tick 5 (each contained through the CPU
+    mirror and followed by a rebuild onto a fresh cuda index), then
+    ``backend.collect`` on ticks 8-10, three in a row: the failover to
+    the mirror. Fan-out equals the cpu index's on every tick."""
+    from worldql_server_tpu_torch.engine.metrics import Metrics
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.robustness import failpoints
+    from worldql_server_tpu_torch.robustness.resilient import (
+        ResilientBackend)
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.tools.index_bench import RandomWalk
+
+    def fresh():
+        b = CudaSpatialBackend(16, device=device)
+        b.configure_delta_ticks("auto")  # as the server's factory arms it
+        return b
+
+    walk = RandomWalk(np.random.default_rng(SEED + 3), n)
+    metrics = Metrics()
+    first = fresh()
+    backend = ResilientBackend(first, factory=fresh, failover_after=3,
+                               metrics=metrics)
+    ref = CpuSpatialBackend(16)
+    for b in (backend, ref):
+        b.bulk_add_subscriptions("walk", walk.peers, walk.cubes)
+    backend.flush()
+    faults = {2: "backend.dispatch=error:1:x1",
+              5: "backend.collect=error:1:x1",
+              8: "backend.collect=error:1:x3"}
+    repl = np.zeros(n, np.int8)
+    rows = []
+    try:
+        for t in range(n_ticks):
+            moved, old, new = walk.step()
+            sel = [walk.peers[i] for i in moved]
+            backend.bulk_remove_subscriptions("walk", sel, old)
+            backend.bulk_add_subscriptions("walk", sel, new)
+            backend.flush()
+            for i, o, c in zip(moved, old, new):
+                ref.remove_subscription("walk", walk.peers[i],
+                                        tuple(int(v) for v in o))
+                ref.add_subscription("walk", walk.peers[i],
+                                     tuple(int(v) for v in c))
+            worlds, peer_ids = backend.interning_maps()
+            wid = np.full(n, worlds["walk"], np.int32)
+            sid = np.array([peer_ids[p] for p in walk.peers], np.int32)
+            queries = [LocalQuery("walk", Vector3(*map(float, xyz)), p,
+                                  Replication.EXCEPT_SELF)
+                       for xyz, p in zip(walk.positions, walk.peers)]
+            if t in faults:
+                failpoints.registry.configure(faults[t])
+            t0 = time.perf_counter()
+            got = backend.collect_local_batch(backend.dispatch_staged_batch(
+                wid, walk.positions, sid, repl,
+                fallback=[(None, q) for q in queries]))
+            tick_ms = (time.perf_counter() - t0) * 1e3
+            _same_fanout(got, ref.match_local_batch(queries),
+                         f"resilience tick {t}")
+            st = backend.status()
+            rows.append({"tick": t, "tick_ms": tick_ms,
+                         "fanout": sum(map(len, got)),
+                         "fault": faults.get(t, ""),
+                         "inner_is_first": backend.inner is first, **st})
+            print("resilience tick", json.dumps(rows[-1]), flush=True)
+            if t == 7 and (st["rebuilds"] != 2 or st["failed_over"]
+                           or backend.inner is first
+                           or backend.inner.device.type != first.device.type
+                           or st["inner"] != "CudaSpatialBackend"):
+                raise AssertionError(f"no rebuild onto the card: {st}")
+    finally:
+        fired = dict(failpoints.registry.fired_counts())
+        failpoints.registry.configure("")
+    st = backend.status()
+    if not (st["failed_over"] and st["degraded_batches"] == 5
+            and st["failures"] == 5 and st["rebuilds"] == 4):
+        raise AssertionError(f"resilience leg ended in {st}")
+    report = {
+        "clients": n, "ticks": n_ticks, "status": st, "fired": fired,
+        "metrics": {k: v for k, v in metrics.counters.items()
+                    if k.startswith("resilience")},
+        "tick_ms": _ms_stats([r["tick_ms"] for r in rows]),
+        "fault_tick_ms": {r["tick"]: r["tick_ms"] for r in rows
+                          if r["fault"]},
+        "device": str(first.device),
+    }
+    print("resilience", json.dumps(report), flush=True)
+    print(f"resilience: fan-out equal to the cpu index on all {n_ticks} "
+          f"ticks; {st['degraded_batches']} contained batches, "
+          f"{st['rebuilds']} rebuilds, failed over: {st['failed_over']}")
+    return report
+
+
+#: one LocalMessage of each query kind, asked through the server
+KIND_QUERIES = (
+    ("query.cone", {"dir": [1, 0, 0], "half_angle_deg": 95, "range": 48}),
+    ("query.raycast", {"dir": [0.6, 0.8, 0], "max_t": 48,
+                       "mode": "all_hits"}),
+    ("query.knn", {"k": 4, "max_range": 48}),
+    ("query.density", {"extent": 3, "top_n": 8}),
+)
+
+
+async def _ask_kinds(server, askers, positions, inbox):
+    """Send one query of each kind, asker i asking KIND_QUERIES[i], and
+    wait for the ``.result`` reply frames; returns them as bytes."""
+    from worldql_server_tpu_torch.protocol import (
+        Instruction, Message, deserialize_message)
+    from worldql_server_tpu_torch.protocol.types import Vector3
+
+    for (wire, payload), p, pos in zip(KIND_QUERIES, askers, positions):
+        await server.router.handle_message(Message(
+            instruction=Instruction.LOCAL_MESSAGE, sender_uuid=p,
+            world_name="walk", position=Vector3(*map(float, pos)),
+            parameter=wire, flex=json.dumps(payload).encode()))
+    replies = []
+    deadline = time.perf_counter() + 60
+    for (wire, _), p in zip(KIND_QUERIES, askers):
+        while True:
+            found = [d for d in inbox.get(p, ())
+                     if deserialize_message(d).parameter == f"{wire}.result"]
+            if found:
+                replies.append(found[0])
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"no {wire}.result reply")
+            await asyncio.sleep(0.005)
+    return replies
+
+
 async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
     """LocalMessage fan-out through the server as ``python -m
     worldql_server_tpu_torch`` boots it on a card (the cuda index, a
@@ -700,19 +1035,33 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
                              f"{getattr(server.backend, 'device', 'host')}")
     await server.start()
     walk = RandomWalk(np.random.default_rng(SEED + 2), n)
+    cubes0 = walk.cubes.copy()  # the subscriptions stay where they start
     frames = collections.Counter()
+    # the query askers: walkers in the most crowded starting cubes
+    crowd = collections.Counter(map(tuple, cubes0.tolist()))
+    by_crowd = sorted(range(n), key=lambda i: -crowd[tuple(cubes0[i])])
+    askers = [walk.peers[i] for i in by_crowd[:len(KIND_QUERIES)]]
+    inbox: dict = {p: [] for p in askers}
 
-    def sink(p):
+    def sink(p, frames=frames, inbox=inbox):
+        keep = inbox.get(p)
+
         def one(f):
             frames[p] += 1
+            if keep is not None:
+                keep.append(f.payload)
             return True
 
         def many(fs):
             frames[p] += len(fs)
+            if keep is not None:
+                keep.extend(f.payload for f in fs)
             return True
 
         async def raw(data):
             frames[p] += 1
+            if keep is not None:
+                keep.append(data)
         return raw, one, many
 
     t0 = time.perf_counter()
@@ -764,9 +1113,43 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
                      "flush_wait_ms": (t_done - t_sent) * 1e3,
                      "tick_ms": server.ticker.last_tick_ms})
     staged = server.backend.staged_dispatches - staged0
+
+    # one query of each kind through the same server, the reply frames
+    # held against a cpu-index server holding the same subscriptions
+    ask_pos = [walk.positions[walk.peers.index(p)] for p in askers]
+    expansions0 = server.backend.kind_expansions
+    replies = await _ask_kinds(server, askers, ask_pos, inbox)
+    expansions = server.backend.kind_expansions - expansions0
     await server.stop()
     if staged == 0:
         raise AssertionError("no LocalMessage went through staged dispatch")
+    if expansions == 0:
+        raise AssertionError("the kind queries did not expand on the index")
+    cpu_config = config_from_args(build_parser().parse_args([
+        "--store-url", "memory://", "--no-ws", "--no-http", "--no-zmq",
+        "--spatial-backend", "cpu", "--tick-interval", "0.05"]))
+    cpu_server = WorldQLServer(cpu_config, device="cpu")
+    await cpu_server.start()
+    cpu_server.backend.bulk_add_subscriptions("walk", walk.peers, cubes0)
+    cpu_inbox: dict = {p: [] for p in askers}
+    for p in askers:
+        raw, one, many = sink(p, collections.Counter(), cpu_inbox)
+        await cpu_server.peer_map.insert(Peer(
+            p, f"mem:{p.hex[:8]}", raw, kind="memory", try_write=one,
+            try_write_many=many))
+    cpu_replies = await _ask_kinds(cpu_server, askers, ask_pos, cpu_inbox)
+    await cpu_server.stop()
+    if replies != cpu_replies:
+        raise AssertionError("query reply frames differ from the cpu-index "
+                             "server's")
+    from worldql_server_tpu_torch.protocol import deserialize_message
+
+    bodies = [json.loads(bytes(deserialize_message(d).flex))
+              for d in replies]
+    print("query replies equal the cpu-index server's, byte for byte: "
+          + json.dumps([{"kind": b["kind"], "peers": len(b.get("peers", ())),
+                         "cubes": len(b.get("cubes", ()))} for b in bodies]),
+          flush=True)
     return {
         "peers": n, "ticks": n_ticks, "join_s": join_s,
         "frames_per_tick": statistics.median(r["frames"] for r in rows),
@@ -775,6 +1158,7 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
         "flush_wait_ms_p50": _ms_stats(
             [r["flush_wait_ms"] for r in rows])["p50"],
         "staged_dispatches": staged,
+        "kind_queries": len(replies), "kind_expansions": expansions,
         "device_stats": server.backend.device_stats(),
     }
 
@@ -841,8 +1225,11 @@ def main() -> int:
     knn_rows = phase_knn(torch, rates)
     tick_rows = phase_tick(torch)
     phase_index_ops(torch)
+    phase_query_kernels(torch)
     phase_fanout(torch)
+    phase_queries(torch)
     phase_churn(torch)
+    phase_resilience(torch)
     phase_local_messages(torch)
     report, launches = phase_server(torch)
 

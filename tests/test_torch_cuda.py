@@ -4,7 +4,10 @@ their plain version on the same card, which kernel serves each K, the
 wrapper's checks, the tick on the card against the tick on the CPU, and
 the device subscription index — every K1–K6 op of ``ops/index.py`` on
 the card against the same op on the CPU, and ``CudaSpatialBackend`` on
-the card against the port's ``CpuSpatialBackend`` under churn.
+the card against the port's ``CpuSpatialBackend`` under churn — and the
+query library: its stencil kernels (K10, K11) on the card against the
+CPU, and a mixed kind batch through ``CudaSpatialBackend`` on the card
+against the cpu index's oracles.
 
 Every test carries the ``cuda`` marker and skips (with a reason) on a
 host without a card; whether there is one is decided inside each test.
@@ -268,3 +271,76 @@ def test_cuda_backend_on_card_matches_cpu_backend_under_churn(delta_ticks):
     assert stats["compactions"] > 0 and stats["compact_fetches"] > 0
     seg = dev._segments()[0][0]
     assert all(t.device.type == "cuda" for t in seg)
+
+
+@pytest.mark.parametrize("m,radius", [(37, 1), (4096, 3)])
+def test_query_kernels_on_card_equal_cpu(m, radius):
+    """K10 and K11 (the query library's stencil kernels) on the card
+    against the same functions on the CPU: bit for bit, on CUDA
+    tensors."""
+    _need_card()
+    from worldql_server_tpu_torch.queries import geometry, knn
+    from worldql_server_tpu_torch.queries.stencil import stencil_offsets
+    from worldql_server_tpu_torch.tools.index_bench import (
+        KIND_IDS, kind_cols)
+
+    rng = np.random.default_rng(m + radius)
+    geom = geometry.stencil_geometry(stencil_offsets(radius), 16)
+    off = torch.from_numpy(stencil_offsets(radius).astype(np.float64))
+    calls = {
+        "cone": lambda p, g, o: (geometry._cone_mask_kernel(p, g),),
+        "knn": lambda p, g, o: knn._knn_order_kernel(p, g),
+        "density": lambda p, g, o: (geometry._density_mask_kernel(p, o),),
+    }
+    for name, fn in calls.items():
+        params = torch.from_numpy(kind_cols(rng, m, KIND_IDS[name])[1])
+        got = fn(params.cuda(), torch.from_numpy(geom).cuda(), off.cuda())
+        want = fn(params, torch.from_numpy(geom), off)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda", name
+            assert torch.equal(a.cpu(), b), name
+
+
+def test_cuda_backend_kind_batch_on_card_matches_cpu_backend():
+    """A mixed kind batch (radius, cone, raycast, knn, density) through
+    CudaSpatialBackend on the card: every lane equal to the port's
+    CpuSpatialBackend (the oracles)."""
+    _need_card()
+    import uuid
+
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.quantize import cube_coords_batch
+    from worldql_server_tpu_torch.tools.index_bench import (
+        mixed_cols, query_results_match)
+
+    rng = np.random.default_rng(12)
+    n, m = 3000, 512
+    pos = rng.uniform(-56, 56, (n, 3))
+    peers = [uuid.UUID(int=0xD000 + i) for i in range(n)]
+    dev = CudaSpatialBackend(16, device="cuda")
+    ref = CpuSpatialBackend(16)
+    for b in (dev, ref):
+        b.bulk_add_subscriptions("w", peers, cube_coords_batch(pos, 16))
+    dev.flush()
+    senders = rng.integers(0, n, m)
+    kinds, params = mixed_cols(rng, m)
+    repl = rng.integers(0, 3, m).astype(np.int8)
+    qpos = pos[senders]
+    sid = np.array([dev._peer_ids[peers[s]] for s in senders], np.int32)
+    got = dev.collect_local_batch(dev.dispatch_staged_batch(
+        np.zeros(m, np.int32), qpos, sid, repl, kinds, params))
+    want = ref.match_local_batch([
+        LocalQuery("w", Vector3(*map(float, qpos[i])), peers[s],
+                   Replication(int(repl[i])), kind=int(kinds[i]),
+                   params=tuple(params[i]))
+        for i, s in enumerate(senders)])
+    assert dev.kind_expansions == 1
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not query_results_match(g, w)]
+    assert not bad, bad[:8]

@@ -31,6 +31,8 @@ from worldql_server_tpu_torch.spatial.cpu_backend import CpuSpatialBackend
 from worldql_server_tpu_torch.spatial.cuda_backend import CudaSpatialBackend
 from worldql_server_tpu_torch.spatial.precompile import precompile_tiers
 from worldql_server_tpu_torch.spatial.quantize import cube_coords_batch
+from worldql_server_tpu_torch.tools.index_bench import (
+    mixed_cols, query_results_match)
 
 CUBE = 16
 WORLDS = ("w0", "w1")
@@ -279,7 +281,8 @@ def test_csr_overflow_retry_and_pack_path():
 
 def test_list_path_point_queries_and_stats():
     """The object-list dispatch, point queries, snapshot export and the
-    device_stats keys match the JAX backend; query kinds raise."""
+    device_stats keys match the JAX backend; so does a query-kind batch
+    (tests/test_torch_queries.py holds the kinds in full)."""
     rng = np.random.default_rng(2)
     trio = Trio(n_peers=200)
     pos, spots = _crowd(rng, 200, n_cubes=10)
@@ -302,9 +305,13 @@ def test_list_path_point_queries_and_stats():
     dense = trio.t.match_arrays(wid, qpos, sid, repl)
     np.testing.assert_array_equal(dense, trio.j.match_arrays(
         wid, qpos, sid, repl))
-    with pytest.raises(NotImplementedError, match="query kinds"):
-        trio.t.dispatch_staged_batch(wid, qpos, sid, repl,
-                                     kinds=np.ones(64, np.int8))
+    kinds, params = mixed_cols(rng, 64)
+    got = trio.t.collect_local_batch(trio.t.dispatch_staged_batch(
+        wid, qpos, sid, repl, kinds, params))
+    want = trio.j.collect_local_batch(trio.j.dispatch_staged_batch(
+        wid, qpos, sid, repl, kinds, params))
+    assert all(query_results_match(g, w) for g, w in zip(got, want))
+    assert trio.t.kind_expansions == trio.j.kind_expansions == 1
 
 
 def test_precompile_walks_the_tiers_and_reads_like_jax():

@@ -27,14 +27,23 @@ and the echo down one PUSH socket, which delivers in order, so every
 frame the server sent before the echo has been read — however far the
 transport lags behind the ticks.
 
+* Query library: a client at a fixed UUID asks one ``query.cone``,
+  ``query.raycast``, ``query.knn`` and ``query.density`` each; the
+  ``.result`` reply frame it receives must be equal, byte for byte,
+  between the port (its cuda index on the CPU) and the JAX server (its
+  cpu index, the oracle). The default servers of both packages answer
+  ``query.cone`` with the same frame, and the port's server with
+  ``--resilience on`` boots and serves.
+
 Also: ``python -m worldql_server_tpu_torch --help`` boots, and the
-port's config accepts ``cuda`` and rejects every subsystem it does not
-have yet.
+port's config accepts ``cuda``, the query library and resilience, and
+rejects every subsystem it does not have yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 import subprocess
 import sys
@@ -70,8 +79,8 @@ def _config(cls, **extra):
     config.zmq_server_port = free_port()
     config.tick_interval = 0.03
     config.spatial_backend = BACKEND[cls]
-    # the port's default; the JAX package's 'on' would also walk the
-    # query-kind kernels at boot, which neither scenario sends
+    # neither frame scenario sends a query kind; 'off' spares the JAX
+    # server the boot walk of the kind kernels (jit compiles)
     config.query_kinds = "off"
     config.entity_sim = True
     config.entity_k = 4
@@ -235,6 +244,119 @@ def test_zmq_area_local_messages_equal_the_jax_server(replication):
         assert [len(f) for f in port] == [1, 1, 2]
 
 
+#: the query stage: an asker at (8, 8, 8), a lane target at (24, 8, 8)
+#: and a flank target at (8, 40, 8) — cubes (16, 16, 16), (32, 16, 16)
+#: and (16, 48, 16) at size 16
+_STAGE = ((8, 8, 8), (24, 8, 8), (8, 40, 8))
+#: one query of each kind, asked from the asker's position
+_QUERIES = (
+    ("query.cone", {"dir": [1, 0, 0], "half_angle_deg": 95, "range": 48}),
+    ("query.raycast", {"dir": [1, 0, 0], "max_t": 48, "mode": "first_hit"}),
+    ("query.raycast", {"dir": [0, 0, 1], "max_t": 48, "mode": "all_hits"}),
+    ("query.knn", {"k": 2, "max_range": 48}),
+    ("query.density", {"extent": 2, "top_n": 8}),
+)
+
+
+async def _query_scenario(server, queries=_QUERIES, resilient=False):
+    """The reply frames the asker receives, one per query, as bytes;
+    on the port's cuda index, every query went through its kind
+    expansion."""
+    await server.start()
+    try:
+        port = server.config.zmq_server_port
+        clients = [await ZmqClient.connect(port, peer_uuid=p)
+                   for p in AREA_PEERS]
+        for client, pos in zip(clients, _STAGE):
+            await client.send(Message(
+                instruction=Instruction.AREA_SUBSCRIBE, world_name="w",
+                position=Vector3(*map(float, pos))))
+        for client in clients:
+            await _barrier(client)  # subscriptions applied
+        asker = clients[0]
+        replies = []
+        for wire, payload in queries:
+            await asker.send(Message(
+                instruction=Instruction.LOCAL_MESSAGE, world_name="w",
+                position=Vector3(*map(float, _STAGE[0])), parameter=wire,
+                flex=json.dumps(payload).encode()))
+            while True:
+                data = await asyncio.wait_for(asker.pull.recv(), 60)
+                msg = deserialize_message(data)
+                if msg.parameter == f"{wire}.result":
+                    replies.append(bytes(data))
+                    break
+        if isinstance(server, TServer) and \
+                server.config.spatial_backend == "cuda":
+            assert server.backend.kind_expansions == len(queries)
+        if resilient:
+            status = server.resilience_status()
+            assert status is not None and status["inner"] == \
+                "CudaSpatialBackend"
+            assert server.metrics.gauge_value("resilience")["failures"] == 0
+        for client in clients:
+            await client.close()
+        return replies
+    finally:
+        await server.stop()
+
+
+def test_zmq_query_replies_equal_the_jax_server():
+    async def both():
+        port = await _query_scenario(_server(
+            TConfig, entity_sim=False, query_kinds="on"))
+        ref = await _query_scenario(_server(
+            JConfig, entity_sim=False, query_kinds="on",
+            spatial_backend="cpu"))
+        return port, ref
+
+    port, ref = asyncio.run(asyncio.wait_for(both(), 240))
+    assert port == ref
+    bodies = [json.loads(bytes(deserialize_message(d).flex)) for d in port]
+    lane, flank = (p.hex for p in AREA_PEERS[1:])
+    assert sorted(bodies[0]["peers"]) == sorted([lane, flank])   # cone
+    assert bodies[1]["peers"] == [lane] and bodies[1]["t"] == 16.0
+    assert bodies[2]["peers"] == []                             # a miss
+    assert bodies[3]["peers"] == [lane, flank]                  # knn order
+    assert len(bodies[4]["cubes"]) == 3                         # density
+
+
+def _default(cls):
+    """A package's default server, with only its ports set."""
+    config = cls()
+    config.store_url = "memory://"
+    config.http_enabled = False
+    config.ws_enabled = False
+    config.zmq_server_host = "127.0.0.1"
+    config.zmq_server_port = free_port()
+    return TServer(config, device="cpu") if cls is TConfig else \
+        JServer(config)
+
+
+def test_default_server_answers_query_cone_as_the_jax_one():
+    async def both():
+        cone = _QUERIES[:1]
+        return (await _query_scenario(_default(TConfig), cone),
+                await _query_scenario(_default(JConfig), cone))
+
+    port, ref = asyncio.run(asyncio.wait_for(both(), 240))
+    assert port == ref and len(port) == 1
+
+
+def test_resilience_on_boots_and_serves():
+    async def both():
+        port = await _query_scenario(
+            _server(TConfig, entity_sim=False, query_kinds="on",
+                    resilience="on"), resilient=True)
+        ref = await _query_scenario(_server(
+            JConfig, entity_sim=False, query_kinds="on",
+            spatial_backend="cpu"))
+        return port, ref
+
+    port, ref = asyncio.run(asyncio.wait_for(both(), 240))
+    assert port == ref
+
+
 def test_cli_help_boots():
     env = dict(os.environ, WQL_TORCH_DEVICE="cpu")
     proc = subprocess.run(
@@ -268,9 +390,9 @@ def test_cli_without_a_card_exits_with_an_error():
 @pytest.mark.parametrize("field,value", [
     ("spatial_backend", "tpu"), ("spatial_backend", "sharded"),
     ("delivery_workers", 1),
-    ("session_ttl", 5.0), ("overload", "on"), ("query_kinds", "on"),
+    ("session_ttl", 5.0), ("overload", "on"),
     ("interest", "on"), ("cluster_shards", 2), ("slo", "on"),
-    ("resilience", "on"), ("index_snapshot", "idx.snap"),
+    ("index_snapshot", "idx.snap"),
 ])
 def test_config_rejects_unported(field, value):
     config = _config(TConfig, **{field: value})
@@ -278,6 +400,17 @@ def test_config_rejects_unported(field, value):
     match = "serves it as 'cuda'" if value == "tpu" else "not yet ported"
     with pytest.raises(ValueError, match=match):
         config.validate()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("query_kinds", "on"), ("resilience", "on"),
+])
+def test_config_accepts_ported(field, value):
+    """The query library and the resilient backend are ported: they
+    validate over the cuda index and over the cpu one."""
+    _config(TConfig, **{field: value}).validate()
+    _config(TConfig, entity_sim=False, spatial_backend="cpu",
+            **{field: value}).validate()
 
 
 def test_config_accepts_cuda():
@@ -297,7 +430,8 @@ def test_default_boots_validate():
     boots the cuda index on a 0.05 s tick."""
     TConfig().validate()
     _config(TConfig).validate()
-    assert TConfig().query_kinds == "off"
+    assert TConfig().query_kinds == "on"  # as in the JAX package
+    assert TConfig().resilience == "off"
     with pytest.raises(ValueError, match="entity_sim requires a device"):
         _config(TConfig, spatial_backend="cpu").validate()
     with pytest.raises(ValueError, match="delta_ticks='on' requires"):

@@ -162,11 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="wrap the spatial backend in the degraded-mode "
                         "ResilientBackend: contain device failures, "
                         "rebuild from the CPU mirror, fail over "
-                        "TPU->CPU after --failover-after consecutive "
+                        "card->CPU after --failover-after consecutive "
                         "failures (default off)")
     p.add_argument("--failover-after", type=int, dest="failover_after",
                    help="consecutive backend failures before the "
-                        "TPU->CPU failover (default 3)")
+                        "card->CPU failover (default 3)")
     p.add_argument("--supervisor-budget", type=int, dest="supervisor_budget",
                    help="restarts a supervised task gets per unhealthy "
                         "streak before it is marked failed (default 5)")

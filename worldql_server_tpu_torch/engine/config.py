@@ -19,9 +19,10 @@ flag surface is the same. The device index is ``cuda``
 backend); ``tpu`` is refused with a pointer to it. ``validate()``
 rejects every setting whose subsystem the port does not have yet with
 a "not yet ported" error — the ``sharded`` mesh index, the delivery
-plane, sessions, the overload governor, the query library (so
-``query_kinds`` defaults to ``off`` here), interest management, the
-cluster tier, the SLO engine, resilience and index snapshots. As in
+plane, sessions, the overload governor, interest management, the
+cluster tier, the SLO engine and index snapshots. The query library
+(``query_kinds``, on by default as in the JAX package) and the
+resilient backend (``resilience``, off by default) are ported. As in
 the JAX package, ``entity_sim`` and ``delta_ticks='on'`` require the
 device index.
 """
@@ -221,7 +222,7 @@ class Config:
     # Degraded-mode spatial backend (robustness/resilient.py): 'on'
     # wraps the spatial backend in ResilientBackend — contain device
     # failures, rebuild from the authoritative CPU mirror, fail over
-    # TPU→CPU after `failover_after` consecutive failures. 'off' (the
+    # card→CPU after `failover_after` consecutive failures. 'off' (the
     # default) keeps the raw backend, reference-equivalent.
     resilience: str = field(
         default_factory=lambda: _env("WQL_RESILIENCE", "off")
@@ -459,7 +460,7 @@ class Config:
     # pre-library pipeline byte for byte: those parameters ride as
     # plain radius messages.
     query_kinds: str = field(
-        default_factory=lambda: _env("WQL_QUERY_KINDS", "off")
+        default_factory=lambda: _env("WQL_QUERY_KINDS", "on")
     )
     # Stencil clamp: max probe radius in cubes a kind expansion may
     # walk (cone range / knn max-range reaches clamp to it). Part of
@@ -818,16 +819,12 @@ class Config:
             unported.append("session_ttl > 0 (sessions)")
         if self.overload == "on":
             unported.append("overload='on' (overload governor)")
-        if self.query_kinds == "on":
-            unported.append("query_kinds='on' (spatial query library)")
         if self.interest == "on":
             unported.append("interest='on' (interest-managed fan-out)")
         if self.cluster_shards > 0 or self.cluster_role:
             unported.append("cluster_shards/cluster_role (cluster tier)")
         if self.slo_enabled:
             unported.append("slo='on'/slo_file (SLO engine)")
-        if self.resilience == "on":
-            unported.append("resilience='on' (resilient backend)")
         if self.index_snapshot:
             unported.append("index_snapshot (index snapshots)")
         return [

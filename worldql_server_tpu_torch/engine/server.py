@@ -9,10 +9,12 @@ One asyncio event loop carries the reference's task/channel mesh.
 What the port wires today (ROADMAP.md lists the rest): the
 subscription index — the device ``cuda`` index (spatial/cuda_backend.py,
 with delta ticks, staged dispatch, the boot tier walk and device
-telemetry) or the host ``cpu`` AreaMap — the entity simulation plane
-(``--entity-sim``: ``entities/`` + ``ops/tick.py`` + the CUDA kNN
-kernel) on the same device as the index, the ticker, router,
-transports, durability and the flight recorder. ``Config.validate()``
+telemetry) or the host ``cpu`` AreaMap, optionally inside the
+``--resilience on`` wrapper (robustness/resilient.py) — the spatial
+query library (``--query-kinds``, on by default), the entity
+simulation plane (``--entity-sim``: ``entities/`` + ``ops/tick.py`` +
+the CUDA kNN kernel) on the same device as the index, the ticker,
+router, transports, durability and the flight recorder. ``Config.validate()``
 rejects the subsystems that are not ported yet, so none of their wiring
 exists here.
 """
@@ -43,6 +45,9 @@ def build_backend(config: Config, device=None) -> SpatialBackend:
         from ..spatial.cuda_backend import CudaSpatialBackend
 
         backend = CudaSpatialBackend(config.sub_region_size, device=device)
+        # delta ticks configure HERE so a resilience rebuild's factory
+        # (which calls build_backend again) re-arms the fresh instance
+        # — its cache starts cold, never stale
         if config.delta_ticks != "off":
             backend.configure_delta_ticks(config.delta_ticks)
             backend.delta_rebuild_threshold = (
@@ -75,6 +80,21 @@ class WorldQLServer:
             failpoints.registry.seed(config.failpoints_seed)
         self.backend = (backend if backend is not None
                         else build_backend(config, device=device))
+        if config.resilience == "on":
+            from ..robustness.resilient import ResilientBackend
+
+            if not isinstance(self.backend, ResilientBackend):
+                self.backend = ResilientBackend(
+                    self.backend,
+                    # rebuilds get a fresh backend of the configured
+                    # kind on the same device; injected test backends
+                    # can't be re-made
+                    factory=(
+                        (lambda: build_backend(config, device=device))
+                        if backend is None else None
+                    ),
+                    failover_after=config.failover_after,
+                )
         self.store = store if store is not None else open_store(
             config.store_url, config
         )
@@ -99,6 +119,8 @@ class WorldQLServer:
                 context=self.loop_monitor.snapshot,
             )
             self.tracer.on_trace = self.recorder.record
+        if hasattr(self.backend, "_note_failure"):  # ResilientBackend
+            self.backend.metrics = self.metrics
         # Device telemetry (observability/device.py): the per-tick
         # encode/h2d/compute/d2h split and the live-memory gauge, for
         # backends with a device side (device_stats)
@@ -122,6 +144,32 @@ class WorldQLServer:
         self.peer_map = PeerMap(
             on_remove=self._on_peer_remove, metrics=self.metrics,
         )
+        # Spatial query library (queries/): wire-level cone / raycast /
+        # kNN / density queries riding the staged columns. 'off' (or an
+        # unregistered parameter) keeps every query a plain radius
+        # match byte for byte — router parse and backend dispatch both
+        # gate on these being None.
+        self.query_limits = None
+        self.heatmap = None
+        if config.query_kinds == "on":
+            from ..queries import QueryLimits
+            from ..queries.heatmap import RegionHeatmap
+
+            self.query_limits = QueryLimits(
+                cube_size=config.sub_region_size,
+                stencil_max=config.query_stencil_max,
+                ray_steps_max=config.query_ray_steps,
+                density_top_n=config.query_density_top_n,
+            )
+            self.heatmap = RegionHeatmap(top_n=config.query_density_top_n)
+            # expansion clamps live on the backend(s): the Resilient
+            # wrapper delegates dispatch to .inner and degradation to
+            # .mirror, so all three must agree with the parse clamps
+            for b in (self.backend, getattr(self.backend, "inner", None),
+                      getattr(self.backend, "mirror", None)):
+                if b is not None:
+                    b.query_stencil_max = config.query_stencil_max
+                    b.query_ray_steps = config.query_ray_steps
         # Entity simulation plane (entities/): the device-resident
         # moving-object workload, on the card unless ``device`` (or
         # WQL_TORCH_DEVICE) asks for the CPU — the same device as the
@@ -156,6 +204,13 @@ class WorldQLServer:
                 metrics=self.metrics,
                 on_error=lambda: self.metrics.inc("zmq.recv_errors"),
             )
+            if hasattr(self.backend, "_note_failure"):
+                # a ResilientBackend rebuild/failover swaps the inner
+                # index out from under an in-flight sim tick: the
+                # plane's device twin (and its dirty bitmap) must be
+                # invalidated BEFORE the restore so the next dispatch
+                # re-ships the host authority
+                self.backend.on_rebuild = self.entity_plane.abort_tick
         self.ticker = None
         self.staging = None
         if config.tick_interval > 0:
@@ -178,6 +233,7 @@ class WorldQLServer:
                 device_telemetry=self.device_telemetry,
                 staging=self.staging,
                 entity_plane=self.entity_plane,
+                heatmap=self.heatmap,
             )
         self.precompile_stats: dict | None = None
         # Durability engine: WAL + write-behind pipeline. With
@@ -210,6 +266,8 @@ class WorldQLServer:
             ticker=self.ticker, metrics=self.metrics,
             durability=self.durability, tracer=self.tracer,
             entity_plane=self.entity_plane,
+            query_limits=self.query_limits,
+            heatmap=self.heatmap,
         )
         self._register_gauges()
         self._transports: list = []
@@ -221,6 +279,9 @@ class WorldQLServer:
             "subscriptions", self.backend.subscription_count
             if hasattr(self.backend, "subscription_count") else lambda: None
         )
+        if self.heatmap is not None:
+            # per-region density aggregates (queries/heatmap.py)
+            self.metrics.gauge("region_density", self.heatmap.gauge)
         if self.config.delta_ticks != "off":
             # flattened into delta.* series by render_prometheus
             self.metrics.gauge("delta", self._delta_status)
@@ -276,6 +337,18 @@ class WorldQLServer:
             self.metrics.gauge("flight_recorder", self.recorder.stats)
         if self.loop_monitor is not None:
             self.metrics.gauge("loop_health", self.loop_monitor.snapshot)
+        if self.resilience_status() is not None:
+            # containments, rebuilds and failovers: never silent
+            self.metrics.gauge("resilience", self.backend.status)
+
+    def resilience_status(self) -> dict | None:
+        """Degraded-mode state for /healthz; None without a
+        ResilientBackend wrapper."""
+        if hasattr(self.backend, "status") and hasattr(
+            self.backend, "failed_over"
+        ):
+            return self.backend.status()
+        return None
 
     def _escalate(self, task_name: str) -> None:
         """Supervisor escalation hook: a critical task is permanently

@@ -1,8 +1,11 @@
 """ctypes bridge to the native C++ wire codec (native/codec.cpp).
 
-Loads ``native/libwqlcodec.so`` if it has been built (``make -C
-native``); otherwise ``load()`` returns None and the protocol package
-stays on the pure-Python codec — same semantics, slower. The reference
+Loads ``native/libwqlcodec.so``, building it first with ``make -C
+native`` when the in-tree library is missing (:func:`ensure_built`:
+the library is gitignored, so a fresh checkout has none). Without it
+— no compiler, or ``WQL_NATIVE_CODEC=0`` — ``load()`` returns None and
+the protocol package stays on the pure-Python codec: same semantics,
+slower. The reference
 pays this cost differently: its codec is compiled Rust behind a global
 serializer mutex (structures/message.rs:116-134); here the native path
 is re-entrant and per-call.
@@ -16,8 +19,10 @@ back to the Python codec transparently.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
+import subprocess
 import threading
 import uuid as uuid_mod
 from pathlib import Path
@@ -27,6 +32,8 @@ from .types import Entity, Instruction, Message, Record, Replication, Vector3
 logger = logging.getLogger(__name__)
 
 _LIB_PATH = Path(__file__).resolve().parent.parent.parent / "native" / "libwqlcodec.so"
+#: lock serialising the build across processes (gitignored ``build/``)
+_BUILD_LOCK = _LIB_PATH.parent.parent / "build" / "native.lock"
 
 MAX_OBJS = 1024
 
@@ -256,12 +263,43 @@ def resolve_lib_path() -> Path | None:
     return _LIB_PATH if env == "1" else Path(env)
 
 
+def ensure_built() -> None:
+    """Build the in-tree library (``make -C native``) when it is the one
+    configured (WQL_NATIVE_CODEC unset or '1') and missing. Called by
+    :func:`load`, which the ``protocol`` package runs at its import.
+    Several processes may start at once (test workers, a server and
+    its tools): the check and the build happen under an exclusive
+    ``fcntl`` lock, so one builds and the others then find the finished
+    library, never a half-written one. A failed build is logged and
+    leaves the Python fallback."""
+    if os.environ.get("WQL_NATIVE_CODEC", "1") != "1":
+        return
+    _BUILD_LOCK.parent.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _LIB_PATH.exists():
+            return
+        try:
+            proc = subprocess.run(
+                ["make", "-C", str(_LIB_PATH.parent), _LIB_PATH.name],
+                capture_output=True, text=True, check=False,
+            )
+        except OSError as exc:  # no make on this host
+            logger.warning("cannot build %s: %s", _LIB_PATH, exc)
+            return
+        if proc.returncode != 0:
+            logger.warning("building %s failed (%s): %s", _LIB_PATH,
+                           proc.returncode, proc.stderr[-2000:])
+
+
 def load() -> NativeCodec | None:
     """Load the native codec, or None (pure-Python fallback).
     WQL_NATIVE_CODEC: '0' forces the fallback, '1'/unset uses the
-    in-tree build, any other value is a path to the shared library
-    (containers install it outside the source tree)."""
+    in-tree build (built here when missing), any other value is a path
+    to the shared library (containers install it outside the source
+    tree)."""
     env = os.environ.get("WQL_NATIVE_CODEC", "1")
+    ensure_built()
     lib_path = resolve_lib_path()
     if lib_path is None:
         return None

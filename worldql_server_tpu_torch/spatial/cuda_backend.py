@@ -21,8 +21,9 @@ What differs from the JAX package:
   that event before it reads. On the CPU the result tensors are read
   in place.
 * Query arrays go up with a non-blocking copy from pinned memory.
-* The query-kind leg (``_dispatch_kind_batch``, the spatial query
-  library) is not ported: a batch with non-zero kinds raises.
+* The query-kind leg (``_dispatch_kind_batch``) runs the library's
+  stencil kernels (``queries/geometry.py``, ``queries/knn.py``) on
+  ``self.device``.
 * There is no jit, so there is nothing to retrace; the tier walk in
   ``spatial/precompile.py`` warms the allocator and sort workspaces.
 
@@ -60,6 +61,7 @@ from ..ops.index import (
     probe_buckets_for,
 )
 from ..protocol.types import Vector3
+from ..queries.kinds import PARAM_LANES as _QUERY_PARAM_LANES
 from .backend import Cube, LocalQuery, SpatialBackend, to_cube
 from .delta_ticks import TemporalCoherence, row_signatures
 from .hashing import (
@@ -106,14 +108,6 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     after it (the collect's sync points; a plain ``.cpu()`` would also
     wait for the next tick's dispatch)."""
     return _HostCopy([t]).get()[0]
-
-
-def _no_query_kinds():
-    raise NotImplementedError(
-        "query kinds (the spatial query library) are not yet ported to "
-        "worldql_server_tpu_torch; the cuda index resolves radius "
-        "queries only"
-    )
 
 
 class _CollisionError(Exception):
@@ -258,8 +252,8 @@ class CudaSpatialBackend(SpatialBackend):
         #: the bench smoke gate asserts the staged path actually fired
         self.staged_dispatches = 0
         self.list_dispatches = 0
-        #: mixed-kind batches expanded by the query library: always 0
-        #: here (not ported); kept so device_stats reads as the JAX one
+        #: mixed-kind batches expanded by the query library
+        #: (queries/expand.py) into probe rows on the radius pipeline
         self.kind_expansions = 0
 
         # Delta ticks (ROADMAP 2, spatial/delta_ticks.py): per-cube
@@ -1756,7 +1750,18 @@ class CudaSpatialBackend(SpatialBackend):
             (int(q.replication) for q in queries), dtype=np.int8, count=m  # wql: allow(per-query-python-loop) — the legacy list-path encode
         )
         if any(q.kind for q in queries):  # wql: allow(per-query-python-loop) — the legacy list-path encode
-            _no_query_kinds()
+            kind_col = np.fromiter(
+                (q.kind for q in queries), dtype=np.int8, count=m  # wql: allow(per-query-python-loop) — the legacy list-path encode
+            )
+            par_col = np.zeros((m, _QUERY_PARAM_LANES), np.float64)
+            for i, q in enumerate(queries):  # wql: allow(per-query-python-loop) — the legacy list-path encode
+                if q.params:
+                    par_col[i, : len(q.params)] = q.params
+            self.list_dispatches += 1
+            return self._dispatch_kind_batch(
+                world_ids, positions, sender_ids, repls,
+                kind_col, par_col, staged=False,
+            )
         self.list_dispatches += 1
         if self._delta_ticks:
             # object-list dispatches (staging desync, CPU-compat API)
@@ -1782,14 +1787,18 @@ class CudaSpatialBackend(SpatialBackend):
         arrays — world/peer interning already happened at enqueue time
         (engine/staging.py), so this is zero per-query Python: one
         fused vectorized encode (native when built) and the launch.
-        ``None`` or an all-zero kind column is the pure-radius
-        pipeline; non-radius ``kinds`` lanes (the query library) are not
-        ported and raise. ``fallback`` is ignored here."""
+        A batch carrying non-radius ``kinds`` lanes routes through the
+        query-library probe expansion first; ``None`` or an all-zero
+        kind column is the pure-radius pipeline, byte for byte.
+        ``fallback`` is ignored here (see robustness/resilient.py)."""
         m = len(world_ids)
         if m == 0:
             return (0, None, {})
         if kinds is not None and np.any(kinds):
-            _no_query_kinds()
+            return self._dispatch_kind_batch(
+                world_ids, positions, sender_ids, repls,
+                kinds, params, staged=True,
+            )
         t_start = time.perf_counter()
         self.staged_dispatches += 1
         if self._delta_ticks:
@@ -1800,6 +1809,40 @@ class CudaSpatialBackend(SpatialBackend):
             m, world_ids, positions, sender_ids, repls, t_start,
             staged=True,
         )
+
+    def _dispatch_kind_batch(
+        self, world_ids, positions, sender_ids, repls, kinds, params,
+        *, staged: bool,
+    ):
+        """Kind-dispatched leg of both dispatch paths: expand the mixed
+        batch into pure-radius probe rows (queries/expand.py) — the
+        stencil kernels pick the candidate cubes per kind on
+        ``self.device`` — then send the probes through the NORMAL
+        staged pipeline against the same persistent index (same CSR
+        delivery, same capacity tiers, and delta-tick reuse at probe
+        granularity: probes are content-addressed rows, so a repeated
+        cone replays its cached cubes). Collect sees a
+        ``("qk", plan, inner)`` handle and folds the per-probe fan-outs
+        back into one result per query."""
+        from ..queries.expand import expand_staged
+
+        m = len(world_ids)
+        plan, p_wid, p_pos, p_sid, p_repl = expand_staged(
+            world_ids, positions, sender_ids, repls, kinds, params,
+            cube_size=self.cube_size,
+            device=self.device,
+            stencil_max=self.query_stencil_max,
+            ray_steps_max=self.query_ray_steps,
+        )
+        self.kind_expansions += 1
+        if staged:
+            inner = self.dispatch_staged_batch(p_wid, p_pos, p_sid, p_repl)
+        else:
+            inner = self._dispatch_encoded(
+                len(p_wid), p_wid, p_pos, p_sid, p_repl,
+                time.perf_counter(), staged=False,
+            )
+        return (m, ("qk", plan, inner), inner[2])
 
     def _dispatch_delta(
         self, m, world_ids, positions, sender_ids, repls, t_start,
@@ -1978,6 +2021,15 @@ class CudaSpatialBackend(SpatialBackend):
         m, payload, timing = handle
         if payload is None:
             return [[] for _ in range(m)]
+        if payload[0] == "qk":
+            # kind-expanded batch: collect the probe fan-outs through
+            # whatever path the inner dispatch took (CSR, dense, delta
+            # replay), then fold them per original query
+            from ..queries.expand import fold_collected
+
+            return fold_collected(
+                payload[1], self.collect_local_batch(payload[2])
+            )
         if payload[0] == "tc":
             # delta-tick handle: replayed rows + dirty sub-batch; the
             # inner handle (when any) carries its own timing legs

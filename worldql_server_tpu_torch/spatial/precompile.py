@@ -12,10 +12,13 @@ dispatched once against the backend's real device segments (dummy
 queries that match nothing; results discarded) and synchronized, so
 the boot ends with the pools warm.
 
+The query-library leg runs the kind stencil kernels (K10, K11) over
+the kind-row tier ladder × the reachable stencil radii on the index's
+device; it needs no index, so an empty-index boot still walks it.
+
 The stats keys are the JAX ones, so the ``precompile`` gauge reads the
 same: ``new_variants`` and ``families`` count jit compiles there and
-are 0 and ``{}`` here, and the query-kind leg (``kind_dispatches``) is
-0 because the query library is not ported.
+are 0 and ``{}`` here.
 """
 
 from __future__ import annotations
@@ -60,6 +63,33 @@ def _sync(backend) -> None:
         torch.cuda.synchronize(backend.device)
 
 
+#: kernel calls the query-library leg may make (its own small budget:
+#: the kernels are elementwise masks and one row sort)
+MAX_KIND_CALLS = 96
+
+
+def _precompile_kind_tiers(backend, max_batch: int) -> dict:
+    """Query-library leg of the boot walk: run every REGISTERED kind's
+    stencil kernel (queries/geometry.py, queries/knn.py) over the
+    kind-row tier ladder × the reachable stencil radii, largest first.
+    The row wrappers pad to pow2 tiers (geometry.KIND_ROW_FLOOR), so
+    this ladder is exactly the shape set serving can hit."""
+    from ..queries.geometry import KIND_ROW_FLOOR, precompile_kind_kernels
+
+    calls = skipped = 0
+    tier = next_pow2(max(1, int(max_batch)), floor=KIND_ROW_FLOOR)
+    while tier >= KIND_ROW_FLOOR:
+        for radius in range(1, backend.query_stencil_max + 1):
+            if calls >= MAX_KIND_CALLS:
+                skipped += 1
+                continue
+            calls += precompile_kind_kernels(
+                tier, radius, backend.cube_size, device=backend.device)
+        tier //= 2
+    _sync(backend)
+    return {"kind_dispatches": calls, "kind_skipped_by_budget": skipped}
+
+
 #: CSR slot-capacity doublings walked above each query tier's zone-A
 #: floor (the adaptive delivery cap climbs that ladder at runtime)
 T_TIERS = 4
@@ -76,13 +106,16 @@ def precompile_tiers(backend, *, max_batch: int) -> dict:
     min_batch = 8 if backend._delta_ticks else None
     backend.flush()
     segs, ks, kinds = backend._segments()
-    empty = {"new_variants": 0, "families": {}, "kind_dispatches": 0}
+    empty = {"new_variants": 0, "families": {}}
     if not segs:
         logger.info(
             "tier walk skipped: empty index (no device segments)"
         )
+        # the kind stencil kernels take parameter shapes only — no
+        # index needed, so an empty-index boot still warms them
         return {"skipped": "empty-index", "dispatches": 0,
-                "pack_calls": 0, "wall_ms": 0.0, **empty}
+                "pack_calls": 0, "wall_ms": 0.0, **empty,
+                **_precompile_kind_tiers(backend, max_batch)}
 
     nseg = len(segs)
     base_cap = backend._delivery_cap
@@ -131,12 +164,14 @@ def precompile_tiers(backend, *, max_batch: int) -> dict:
                 pack_calls += 1
                 bucket *= 2
 
+    kind_stats = _precompile_kind_tiers(backend, max_batch)
     stats = {
         "dispatches": dispatches,
         "pack_calls": pack_calls,
         "skipped_by_budget": skipped,
         "wall_ms": round((time.perf_counter() - t0) * 1e3, 1),
         **empty,
+        **kind_stats,
     }
     logger.info(
         "tier walk: %d dispatch + %d pack shapes in %.0f ms%s",

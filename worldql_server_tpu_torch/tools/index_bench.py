@@ -12,7 +12,11 @@ The generators are copies of the JAX package's ``bench.py`` ones
 * :func:`make_query_batch` — entities broadcasting from a random
   subscriber's cube, 20% from a fresh point (mostly misses);
 * :class:`RandomWalk` — BASELINE config 2: 10,000 clients walking in
-  ±400 bounds at velocities ±30, dt 0.05 (``bench.py::bench_config2``).
+  ±400 bounds at velocities ±30, dt 0.05 (``bench.py::bench_config2``);
+* :func:`kind_cols`, :func:`mixed_cols` and :func:`query_results_match`
+  — the query-library batches of BASELINE config 12 and its parity
+  test (``bench.py::_kind_cols``, ``_query_results_match`` and the mixed
+  batch of ``bench_config12``).
 
 :func:`op_inputs` turns a crowd into the segment and query tensors the
 ops of ``ops/index.py`` take, on any device, and :func:`op_calls` runs
@@ -28,6 +32,9 @@ import numpy as np
 import torch
 
 from ..ops import index as ix
+from ..queries.kinds import (
+    KIND_CONE, KIND_DENSITY, KIND_KNN, KIND_RADIUS, KIND_RAYCAST,
+    PARAM_LANES, RAY_ALL_HITS, RAY_FIRST_HIT)
 from ..spatial.hashing import (
     PAD_KEY, next_pow2, pad_to, spatial_keys, spatial_keys2)
 from ..spatial.native_keys import encode_queries
@@ -130,6 +137,65 @@ class RandomWalk:
         old = self.cubes[moved].copy()
         self.cubes[moved] = new[moved]
         return moved, old, new[moved]
+
+
+#: the library's kinds by name, in bench_config12's order
+KIND_IDS = {"cone": KIND_CONE, "raycast": KIND_RAYCAST, "knn": KIND_KNN,
+            "density": KIND_DENSITY}
+
+
+def kind_cols(rng: np.random.Generator, m: int, kind_id: int):
+    """→ (kinds i8 [m], params f64 [m, PARAM_LANES]) staged columns for
+    one kind, parameters drawn exactly as the wire parsers clamp them
+    (cube 16, stencil 3, ray steps 64)."""
+    kinds = np.full(m, kind_id, np.int8)
+    params = np.zeros((m, PARAM_LANES), np.float64)
+    if kind_id in (KIND_CONE, KIND_RAYCAST):
+        d = rng.normal(size=(m, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        params[:, 0:3] = d
+    if kind_id == KIND_CONE:
+        params[:, 3] = np.cos(np.radians(rng.uniform(20.0, 80.0, m)))
+        params[:, 4] = rng.uniform(12.0, 48.0, m)
+    elif kind_id == KIND_RAYCAST:
+        params[:, 3] = rng.uniform(16.0, 64.0, m)          # max_t
+        params[:, 4] = np.where(
+            rng.random(m) < 0.5, RAY_FIRST_HIT, RAY_ALL_HITS
+        )
+    elif kind_id == KIND_KNN:
+        params[:, 0] = rng.integers(1, 12, m).astype(np.float64)
+        params[:, 1] = rng.uniform(12.0, 48.0, m)          # max_range
+    elif kind_id == KIND_DENSITY:
+        params[:, 0] = rng.integers(1, 3, m).astype(np.float64)
+        params[:, 1] = 8.0                                 # top_n
+    return kinds, params
+
+
+def mixed_cols(rng: np.random.Generator, m: int):
+    """The mixed one-tick batch: radius rows and every kind,
+    interleaved ``% 5``."""
+    kinds = np.zeros(m, np.int8)
+    params = np.zeros((m, PARAM_LANES), np.float64)
+    lanes = [KIND_RADIUS, *KIND_IDS.values()]
+    for j, kid in enumerate(lanes):
+        sel = np.flatnonzero(np.arange(m) % len(lanes) == j)
+        kinds[sel] = kid
+        if kid != KIND_RADIUS:
+            params[sel] = kind_cols(rng, sel.size, kid)[1]
+    return kinds, params
+
+
+def query_results_match(got, want) -> bool:
+    """Lane-for-lane result equality across the two collect shapes:
+    (kind, peers, extra) for library kinds — compared by field, so a
+    result of either package matches — and peer sets for radius rows
+    (radius peer ORDER is an index-layout artifact on both paths)."""
+    kinds = [hasattr(r, "extra") for r in (got, want)]  # KindResult
+    if any(kinds):
+        return all(kinds) and (
+            (int(got.kind), list(got.peers), got.extra)
+            == (int(want.kind), list(want.peers), want.extra))
+    return set(got) == set(want)
 
 
 def op_inputs(n_subs: int, n_queries: int, seed: int, device,
