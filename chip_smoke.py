@@ -31,8 +31,12 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
    drained, the boot tier walk, 24 pipelined ticks of 16,384 staged
    queries collected on a worker thread as the ticker collects them
    (sampled ticks equal to the port's cpu index), the tick p50/p99 and
-   its encode/h2d/compute/d2h split; then 5 more ticks under
-   ``torch.profiler``, printing the top device ops with their counts;
+   its encode/h2d/compute/d2h split; then ``save_snapshot`` of the live
+   index (1,048,576 subscriptions) and ``load_snapshot`` into a fresh
+   ``CudaSpatialBackend`` on the card — equal row sets and one staged
+   batch's fan-out equal, save and restore seconds and the file's bytes;
+   then 5 more ticks under ``torch.profiler``, printing the top device
+   ops with their counts;
    then the query library at BASELINE config 12: 1,000,000 subscriptions
    in 4 worlds, pure cone / raycast / knn / density batches of 4,096
    queries, the mixed batch and a pure-radius one, p50/p99 wall and
@@ -50,16 +54,28 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
    in-memory sinks, subscribe through the router and send one
    LocalMessage each a tick for 10 ticks; frames per peer per tick equal
    what the cpu index resolves; then one query of each kind, whose
-   reply frames equal a cpu-index server's byte for byte;
+   reply frames equal a cpu-index server's byte for byte; then a second
+   pass of the same clients (5 ticks, joined without announcements)
+   with ``--overload on --session-ttl 30`` and an explicit tick budget
+   and batch tier: fan-out equal to the cpu index every tick through
+   the governor's pump path, the governor ``ok`` with zero sheds, and
+   ``overload_status()`` / ``sessions_status()`` printed;
 9. drives the entity-sim main path: ``Config`` → ``WorldQLServer`` as
    ``python -m worldql_server_tpu_torch --entity-sim`` builds them on a
    card (the cuda index, the plane on the same card), 64 peers with
    in-memory sinks register 100,000 entities with velocities in 4
    worlds through the router / ``ColumnarIngest`` path, and the ticker
    serves sim ticks at k=32 with every kernel's launch counter reset
-   just before and read just after — twice: at least 5 ticks with every
-   entity moving (full ticks), then at least 4 with 1% moving (delta
-   ticks at pow2 sub-tiers); sampled frames are decoded and checked;
+   just before and read just after — three times: at least 4 ticks with
+   every entity moving (full ticks), at least 4 with 1% moving (delta
+   ticks at pow2 sub-tiers), and at least 5 with 1% moving through
+   ``--interest on --delivery-workers 2``: the 64 peers are adopted by
+   the sender workers over socketpairs (the card host has neither
+   ``websockets`` nor ``pyzmq``), a reader thread splits the WebSocket
+   frames, and every peer's frames replayed through ``ReplayClient``
+   refuse no delta, see no gap and equal the server's ledger, with no
+   frame dropped at a ring; sampled frames are decoded and checked, and
+   bytes per tick are printed beside the interest-off 1%-moving run's;
 10. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
@@ -230,8 +246,150 @@ def phase_tick(torch):
     return out
 
 
+class AdoptedPeers:
+    """In-memory peers whose frames go through the delivery plane's
+    sender workers, as a WebSocket peer's do: each peer's write half is
+    one end of a ``socket.socketpair()`` handed to a worker with
+    ``DeliveryPlane.adopt(peer, fd=...)`` (the card host has neither
+    ``websockets`` nor ``pyzmq``), and a reader thread drains the other
+    ends and splits the WebSocket binary frames back into payloads."""
+
+    def __init__(self):
+        import selectors
+        import threading
+
+        self.frames: dict = {}
+        self.bytes = 0
+        self._bufs: dict = {}
+        self._sel = selectors.DefaultSelector()
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="adopted-peers-reader")
+
+    async def insert(self, server, peer_uuid):
+        import socket
+
+        from worldql_server_tpu_torch.engine.peers import Peer
+
+        async def unbound(data):
+            raise AssertionError("an adopted peer wrote in-process")
+
+        ours, theirs = socket.socketpair(socket.AF_UNIX, socket.SOCK_STREAM)
+        for sock in (ours, theirs):
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4 << 20)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+        peer = Peer(peer_uuid, f"pair:{peer_uuid.hex[:8]}", unbound,
+                    kind="websocket")
+        if not server.delivery_plane.adopt(peer, fd=theirs.fileno()):
+            raise AssertionError("no live delivery worker adopted a peer")
+        theirs.close()  # the worker holds its own copy of the fd
+        ours.setblocking(False)
+        with self._lock:
+            self.frames[peer_uuid] = []
+            self._bufs[peer_uuid] = bytearray()
+            self._sel.register(ours, 1, peer_uuid)  # EVENT_READ
+        await server.peer_map.insert(peer)
+
+    def start(self):
+        self._thread.start()
+
+    def _split(self, peer):
+        buf = self._bufs[peer]
+        out = self.frames[peer]
+        while len(buf) >= 2:
+            n, head = buf[1] & 0x7F, 2
+            if n == 126:
+                if len(buf) < 4:
+                    break
+                n, head = int.from_bytes(buf[2:4], "big"), 4
+            elif n == 127:
+                if len(buf) < 10:
+                    break
+                n, head = int.from_bytes(buf[2:10], "big"), 10
+            if buf[0] != 0x82:
+                raise AssertionError(f"not a WS binary frame: {buf[0]:#x}")
+            if len(buf) < head + n:
+                break
+            out.append(bytes(buf[head:head + n]))
+            del buf[:head + n]
+
+    def _run(self):
+        while True:
+            with self._lock:
+                if not self._sel.get_map():
+                    return
+            events = self._sel.select(timeout=0.1)
+            if not events and self._stop.is_set():
+                return
+            for key, _ in events:
+                try:
+                    data = key.fileobj.recv(1 << 20)
+                except BlockingIOError:
+                    continue
+                with self._lock:
+                    if not data:  # the worker closed its end
+                        self._sel.unregister(key.fileobj)
+                        key.fileobj.close()
+                        continue
+                    self.bytes += len(data)
+                    self._bufs[key.data] += data
+                    self._split(key.data)
+
+    def join(self, timeout):
+        """Wait until every worker end closed (the workers flush their
+        rings and exit at the server's stop), then stop reading."""
+        self._thread.join(timeout)
+        self._stop.set()
+        self._thread.join(5)
+        if self._thread.is_alive():
+            raise AssertionError("the adopted peers' reader did not end")
+        leftover = {p: len(b) for p, b in self._bufs.items() if b}
+        if leftover:
+            raise AssertionError(f"torn WS frames left over: {leftover}")
+
+
+def _replay_interest(server, adopted, peers):
+    """Each adopted peer's frames through the port's ReplayClient,
+    held against the server's ledger for that peer."""
+    import uuid
+
+    from worldql_server_tpu_torch.interest import ReplayClient
+
+    mgr = server.interest
+    plane = server.entity_plane
+    totals = {"frames": 0, "fulls": 0, "deltas": 0, "entities": 0}
+    for p in peers:
+        rc = ReplayClient()
+        for frame in adopted.frames[p]:
+            rc.apply(frame)
+        ledger: dict = {}
+        st = mgr._peers.get(p)
+        for key, (wid, pos_b) in (st.state.items() if st else ()):
+            x, y, z = np.frombuffer(pos_b, np.float32)
+            ledger.setdefault(plane._world_names[wid], {})[
+                uuid.UUID(bytes=key)] = (float(x), float(y), float(z))
+        s = rc.stats()
+        if s["deltas_refused"] or s["gaps_seen"]:
+            raise AssertionError(f"peer {p}: replay refused deltas or saw "
+                                 f"gaps: {s}")
+        if rc.snapshot() != ledger:
+            raise AssertionError(
+                f"peer {p}: replayed state ({s['entities']} entities) != "
+                f"the server's ledger ({sum(map(len, ledger.values()))})")
+        totals["frames"] += s["frames_applied"]
+        totals["fulls"] += s["fulls_applied"]
+        totals["deltas"] += s["deltas_applied"]
+        totals["entities"] += s["entities"]
+    return totals
+
+
 async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
-                       min_ticks=10, moving=1.0, device=None):
+                       min_ticks=10, moving=1.0, device=None, extra_args=(),
+                       adopt=False):
+    """The entity-sim server at config 3's width. With ``adopt``, the
+    peers' frames go through the delivery plane's sender workers over
+    socketpairs (``extra_args`` must ask for ``--delivery-workers``)."""
     import uuid
 
     from worldql_server_tpu_torch.__main__ import (
@@ -248,7 +406,7 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
     args = build_parser().parse_args([
         "--entity-sim", "--entity-k", "32", "--entity-max", "131072",
         "--tick-interval", "0.05", "--store-url", "memory://",
-        "--no-ws", "--no-http", "--no-zmq",
+        "--no-ws", "--no-http", "--no-zmq", *extra_args,
     ])
     config = config_from_args(args)
     apply_device_boot_defaults(config, backend_explicit=False,
@@ -280,11 +438,18 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         sunk["bytes"] += len(data)
 
     peers = [uuid.UUID(int=(SEED << 32) + i) for i in range(n_peers)]
-    for p in peers:
-        await server.peer_map.insert(Peer(
-            p, f"mem:{p.hex[:8]}", send_raw, kind="memory",
-            try_write=lambda f: sink_many([f]), try_write_many=sink_many,
-        ))
+    adopted = None
+    if adopt:
+        adopted = AdoptedPeers()
+        for p in peers:
+            await adopted.insert(server, p)
+        adopted.start()
+    else:
+        for p in peers:
+            await server.peer_map.insert(Peer(
+                p, f"mem:{p.hex[:8]}", send_raw, kind="memory",
+                try_write=lambda f: sink_many([f]), try_write_many=sink_many,
+            ))
 
     rng = np.random.default_rng(SEED)
     pos = rng.uniform(-120, 120, (n_entities, 3))
@@ -342,7 +507,16 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
                 "collect_ms": plane.last_knn_ms,
                 "apply_ms": plane.last_apply_ms,
                 "frames": plane.frames,
+                # the wire bytes of the last tick whose delivery settled
+                # (the ticker's per-flush gauge)
+                "bytes": server.metrics.gauge_value(
+                    "delivery.bytes_per_tick"),
+                "delta_ratio": (server.interest.stats()["delta_ratio"]
+                                if server.interest is not None else None),
             })
+    delivery = server.delivery_status()
+    interest = (server.interest.stats() if server.interest is not None
+                else None)
     await server.stop()
     launches = knn_select.launches  # read just after the main path
 
@@ -354,7 +528,20 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         raise AssertionError(f"scatter fell back: {stats}")
     if stats["dropped_ticks"] != 0:
         raise AssertionError(f"dropped ticks: {stats}")
-    served = sunk["frames"] - frames_before
+    replay = None
+    if adopted is not None:
+        # the workers flushed their rings at the stop and closed their
+        # ends: every frame has reached its reader
+        adopted.join(300)
+        if delivery["ring_full_drops"] or delivery["alive"] != \
+                config.delivery_workers or delivery["peers"] != n_peers:
+            raise AssertionError(f"delivery plane: {delivery}")
+        sample = [f for p in peers for f in adopted.frames[p][:4]]
+        served = sum(len(adopted.frames[p]) for p in peers)
+        if server.interest is not None:
+            replay = _replay_interest(server, adopted, peers)
+    else:
+        served = sunk["frames"] - frames_before
     if served <= 0:
         raise AssertionError("no frame reached the sinks")
     # what came out is right in form: decoded neighbour frames of
@@ -363,19 +550,22 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
     frames_seen = 0
     for data in sample:
         msg = deserialize_message(data)
-        if msg.parameter != "entity.frame":
+        if not msg.parameter or not msg.parameter.startswith(
+                "entity.frame"):
             continue  # PeerConnect notices of the peer inserts
         frames_seen += 1
-        ent = msg.entities[0]
-        p = (ent.position.x, ent.position.y, ent.position.z)
-        if (ent.uuid.int not in registered or msg.sender_uuid not in peers
-                or not all(np.isfinite(p))
-                or max(map(abs, p)) > config.entity_bounds):
-            raise AssertionError(f"malformed neighbour frame: {msg}")
+        interest_frame = msg.parameter != "entity.frame"
+        for ent in msg.entities[:4]:
+            p = (ent.position.x, ent.position.y, ent.position.z)
+            if (ent.uuid.int not in registered or not all(np.isfinite(p))
+                    or max(map(abs, p)) > config.entity_bounds
+                    or (not interest_frame and msg.sender_uuid not in peers)):
+                raise AssertionError(f"malformed neighbour frame: {msg}")
     if frames_seen == 0:
         raise AssertionError("no entity.frame among the sampled frames")
     frames_per_tick = [b["frames"] - a["frames"]
                        for a, b in zip(samples, samples[1:])]
+    bytes_per_tick = [s["bytes"] for s in samples[1:]]
 
     def pct(key, q):
         vals = sorted(s[key] for s in samples[1:])
@@ -394,7 +584,18 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         "apply_ms_p50": pct("apply_ms", 0.5),
         "frames_per_tick": statistics.median(frames_per_tick)
         if frames_per_tick else 0,
-        "frames_to_sinks": served, "bytes_to_sinks": sunk["bytes"],
+        "frames_to_sinks": served,
+        "bytes_to_sinks": (adopted.bytes if adopted is not None
+                           else sunk["bytes"]),
+        "bytes_per_tick": bytes_per_tick,
+        "bytes_per_tick_p50": statistics.median(bytes_per_tick)
+        if bytes_per_tick else 0,
+        "delta_ratio": [s["delta_ratio"] for s in samples],
+        "tick_ms": [s["tick_ms"] for s in samples],
+        "apply_ms": [s["apply_ms"] for s in samples],
+        "interest": interest, "delivery": delivery, "replay": replay,
+        "ring_bytes": config.delivery_ring_bytes
+        if config.delivery_workers else None,
         "scatter_fallbacks": stats["scatter_fallbacks"],
         "dropped_ticks": stats["dropped_ticks"],
         "warmup": server.precompile_stats,
@@ -461,6 +662,60 @@ def _same_fanout(got, want, what):
         bad = sum(set(a) != set(b) for a, b in zip(got, want))
         raise AssertionError(f"{what}: {bad} queries differ from the "
                              "cpu index")
+
+
+def _sorted_rows(backend, names):
+    """The index's live rows as one lexsorted [n, 6] int64 matrix
+    (world by name, peer uuid hi/lo, cube), independent of interning."""
+    from worldql_server_tpu_torch.spatial.snapshot import export_rows
+
+    worlds, hi, lo, wid, cube, pid = export_rows(backend)
+    order = np.array([names.index(w) for w in worlds], np.int64)
+    m = np.column_stack([order[wid], hi[pid].view(np.int64),
+                         lo[pid].view(np.int64), cube.astype(np.int64)])
+    return m[np.lexsort(m.T[::-1])]
+
+
+def _snapshot_leg(torch, dev, worlds, peers, batch, device):
+    """``save_snapshot`` of the live config-5 index, ``load_snapshot``
+    into a fresh CudaSpatialBackend on the card (its bulk load, K1 on
+    upload): equal row sets and one staged batch's fan-out equal."""
+    import tempfile
+
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.snapshot import (
+        load_snapshot, save_snapshot)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index.npz")
+        t0 = time.perf_counter()
+        saved = save_snapshot(dev, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fresh = CudaSpatialBackend(16, device=device)
+        t0 = time.perf_counter()
+        restored, _ = load_snapshot(fresh, path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if fresh.device != dev.device or fresh._base_bundle is None:
+        raise AssertionError(f"the restore did not reach {dev.device}")
+    a, b = _sorted_rows(dev, worlds), _sorted_rows(fresh, worlds)
+    if restored != saved or not np.array_equal(a, b):
+        raise AssertionError(f"snapshot rows differ: saved {saved}, "
+                             f"restored {restored}")
+    wid, pos, sid, repl = batch
+    fw, fp = fresh.interning_maps()
+    moved = (np.array([fw[worlds[w]] for w in wid], np.int32), pos,
+             np.array([fp[peers[x]] for x in sid], np.int32), repl)
+    want = dev.collect_local_batch(dev.dispatch_staged_batch(*batch))
+    got = fresh.collect_local_batch(fresh.dispatch_staged_batch(*moved))
+    _same_fanout(got, want, "restored index")
+    out = {"rows": saved, "file_bytes": size, "save_s": save_s,
+           "restore_s": restore_s, "queries": len(wid),
+           "fanout": sum(map(len, got)), "device": str(fresh.device)}
+    print("snapshot", json.dumps(out), flush=True)
+    return out
 
 
 def _top_device_ops(prof, wall_ms):
@@ -586,6 +841,8 @@ def phase_fanout(torch, n_ticks=24, profile_ticks=5, n_subs=1 << 20,
         "device_stats": dev.device_stats(),
     }
     print("fanout", json.dumps(report), flush=True)
+    report["snapshot"] = _snapshot_leg(torch, dev, worlds, peers,
+                                       batches[0], device)
 
     # the profile: the same ticks, dispatch + collect, under the profiler
     torch.cuda.synchronize()
@@ -997,7 +1254,9 @@ async def _ask_kinds(server, askers, positions, inbox):
     return replies
 
 
-async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
+async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None,
+                               extra_args=(), kinds=True,
+                               silent_join=False):
     """LocalMessage fan-out through the server as ``python -m
     worldql_server_tpu_torch`` boots it on a card (the cuda index, a
     0.05 s tick, staged dispatch): the 10,000 config-2 clients join with
@@ -1023,7 +1282,8 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
     from worldql_server_tpu_torch.tools.index_bench import RandomWalk
 
     config = config_from_args(build_parser().parse_args([
-        "--store-url", "memory://", "--no-ws", "--no-http", "--no-zmq"]))
+        "--store-url", "memory://", "--no-ws", "--no-http", "--no-zmq",
+        *extra_args]))
     apply_device_boot_defaults(config, backend_explicit=False,
                                interval_explicit=False)
     config.validate()
@@ -1067,9 +1327,14 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
     t0 = time.perf_counter()
     for p in walk.peers:
         raw, one, many = sink(p)
-        await server.peer_map.insert(Peer(
-            p, f"mem:{p.hex[:8]}", raw, kind="memory", try_write=one,
-            try_write_many=many))
+        peer = Peer(p, f"mem:{p.hex[:8]}", raw, kind="memory",
+                    try_write=one, try_write_many=many)
+        if silent_join:
+            # no PeerConnect to the peers already in: the O(n^2) join
+            # announcements are the first pass's to measure
+            server.peer_map.rebind(peer)
+        else:
+            await server.peer_map.insert(peer)
     join_s = time.perf_counter() - t0
     ref = CpuSpatialBackend(16)
     for i, p in enumerate(walk.peers):
@@ -1113,6 +1378,22 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
                      "flush_wait_ms": (t_done - t_sent) * 1e3,
                      "tick_ms": server.ticker.last_tick_ms})
     staged = server.backend.staged_dispatches - staged0
+    if not kinds:
+        overload, sessions = server.overload_status(), \
+            server.sessions_status()
+        pumped = server.ticker.staged_flushes
+        await server.stop()
+        if staged == 0 or pumped == 0:
+            raise AssertionError("no LocalMessage went through staged "
+                                 "dispatch")
+        return {
+            "peers": n, "ticks": n_ticks, "join_s": join_s,
+            "frames_per_tick": statistics.median(r["frames"] for r in rows),
+            "tick_ms": _ms_stats([r["tick_ms"] for r in rows]),
+            "staged_dispatches": staged, "staged_flushes": pumped,
+            "overload": overload, "sessions": sessions,
+            "max_batch": config.max_batch,
+        }
 
     # one query of each kind through the same server, the reply frames
     # held against a cpu-index server holding the same subscriptions
@@ -1163,23 +1444,71 @@ async def drive_local_messages(torch, n_ticks=10, n=10_000, device=None):
     }
 
 
+#: the overload/session pass's governor: a tick budget far above the
+#: host-bound LocalMessage tick, and a batch tier twice the 10,000
+#: messages a tick enqueues (the queue-depth signal escalates at half a
+#: tier), so the governor stays ok while its pump path flushes
+GOVERNED = ("--overload", "on", "--session-ttl", "30",
+            "--overload-tick-budget-ms", "60000", "--max-batch", "32768")
+
+
 @phase("LocalMessage through the server")
 def phase_local_messages(torch):
     report = asyncio.run(drive_local_messages(torch))
     print("localmessage", json.dumps(report), flush=True)
-    return report
+    # the same clients again, with the overload governor (its pump path
+    # replaces the inline flush) and sessions on
+    print(f"governed pass flags: {' '.join(GOVERNED)}")
+    governed = asyncio.run(drive_local_messages(
+        torch, n_ticks=5, extra_args=GOVERNED, kinds=False,
+        silent_join=True))
+    print("localmessage governed", json.dumps(governed), flush=True)
+    ovl = governed["overload"]
+    sheds = {k: ovl[k] for k in ("shed_local", "shed_global",
+                                 "shed_handshake_new",
+                                 "shed_handshake_resume", "drop_oldest",
+                                 "rate_limited")}
+    if ovl["state"] != "ok" or ovl["peak_level"] != 0 or any(sheds.values()):
+        raise AssertionError(f"the governor left ok or shed: {ovl}")
+    print(f"overload_status: {json.dumps(ovl)}")
+    print(f"sessions_status: {json.dumps(governed['sessions'])}")
+    return report, governed
+
+
+def interest_ring_bytes(want=64 << 20):
+    """Ring bytes a delivery worker gets for the interest leg: room for
+    the keyframe tick's frames, and at most an eighth of /dev/shm's free
+    space (two rings, whatever else runs)."""
+    import shutil
+
+    free = shutil.disk_usage("/dev/shm").free
+    size = want
+    while size > (1 << 20) and size > free // 8:
+        size //= 2
+    print(f"/dev/shm free {free} bytes; delivery ring {size} bytes a worker")
+    return size
 
 
 @phase("server on the card")
 def phase_server(torch):
-    # 5 + 4 served ticks (10 + 5 before the index phases took the room)
+    # 4 + 4 served ticks (10 + 5 before the index phases took the room,
+    # 5 + 4 before the interest leg did)
     report, launches = asyncio.run(
-        drive_server(torch, moving=1.0, min_ticks=5))
+        drive_server(torch, moving=1.0, min_ticks=4))
     print("server", json.dumps(report), flush=True)
     idle, idle_launches = asyncio.run(
         drive_server(torch, moving=0.01, min_ticks=4))
     print("server", json.dumps(idle), flush=True)
-    for rep, n in ((report, launches), (idle, idle_launches)):
+    # interest-managed fan-out through two sender workers, at the same
+    # shape and the same 1% movers: the keyframe tick, then >= 4 ticks
+    ring = interest_ring_bytes()
+    lean, lean_launches = asyncio.run(drive_server(
+        torch, moving=0.01, min_ticks=5, adopt=True, extra_args=(
+            "--interest", "on", "--delivery-workers", "2",
+            "--delivery-ring-bytes", str(ring))))
+    print("server interest", json.dumps(lean), flush=True)
+    for rep, n in ((report, launches), (idle, idle_launches),
+                   (lean, lean_launches)):
         if rep["device"] != "cuda":
             raise AssertionError(f"entity plane on {rep['device']}")
         if n == 0 or n < rep["dispatched"]:
@@ -1187,8 +1516,19 @@ def phase_server(torch):
                 f"knn launches {n} < ticks dispatched {rep['dispatched']}")
     if idle["delta_sim_ticks"] == 0:
         raise AssertionError("the 1%-moving run served no delta tick")
+    replay = lean["replay"]
+    print(f"interest leg: ring {lean['ring_bytes']} bytes a worker, "
+          f"ring_full_drops {lean['delivery']['ring_full_drops']}; "
+          f"replay of {lean['peers']} peers (no refused delta, no gap, "
+          f"each equal to its ledger): {json.dumps(replay)}; "
+          f"bytes a tick p50 {lean['bytes_per_tick_p50']} (interest on) vs "
+          f"{idle['bytes_per_tick_p50']} (interest off, same 1% movers); "
+          f"apply p50 {lean['apply_ms_p50']:.1f} vs "
+          f"{idle['apply_ms_p50']:.1f} ms; tick p50/p99 "
+          f"{lean['tick_ms_p50']:.1f}/{lean['tick_ms_p99']:.1f} ms; "
+          f"delta_ratio {lean['delta_ratio']}", flush=True)
     print(f"knn launches: {launches} (all moving), {idle_launches} "
-          "(1% moving)")
+          f"(1% moving), {lean_launches} (interest + delivery workers)")
     try:
         import zmq  # noqa: F401
         have_zmq = True
@@ -1196,7 +1536,7 @@ def phase_server(torch):
         have_zmq = False
     print(f"zmq leg ran: false (pyzmq importable: {have_zmq}; the ZMQ "
           "transport is held to the JAX server by tests/test_torch_server.py)")
-    return report, launches
+    return report, launches, lean_launches
 
 
 def main() -> int:
@@ -1231,7 +1571,7 @@ def main() -> int:
     phase_churn(torch)
     phase_resilience(torch)
     phase_local_messages(torch)
-    report, launches = phase_server(torch)
+    report, launches, lean_launches = phase_server(torch)
 
     main_row = knn_rows[0]  # N=131,072, K=32: the server phase's shape
     kernels = {"kernels": [{
@@ -1239,7 +1579,12 @@ def main() -> int:
         "route": "cuda",
         "source": "worldql_server_tpu_torch/csrc/knn_select.cu",
         "replaces": "worldql_server_tpu/ops/knn_pallas.py:174",
-        "launches": launches,
+        # each path driven with the count set to 0 just before it and
+        # read just after: the all-moving entity-sim server and the
+        # interest + delivery-workers server
+        "launches": launches + lean_launches,
+        "launches_by_path": {"entity_sim": launches,
+                             "entity_sim_interest_delivery": lean_launches},
         "max_abs_err": max(r["max_abs_err"] for r in knn_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

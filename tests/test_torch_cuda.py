@@ -344,3 +344,104 @@ def test_cuda_backend_kind_batch_on_card_matches_cpu_backend():
     bad = [i for i, (g, w) in enumerate(zip(got, want))
            if not query_results_match(g, w)]
     assert not bad, bad[:8]
+
+
+def test_snapshot_round_trip_on_card(tmp_path):
+    """An index snapshot of CudaSpatialBackend on the card, restored
+    into a fresh one on the card (through its bulk load, K1 on upload)
+    and into one on the CPU: equal rows and equal fan-out."""
+    _need_card()
+    import uuid
+
+    from worldql_server_tpu_torch.protocol.types import Replication, Vector3
+    from worldql_server_tpu_torch.spatial.backend import LocalQuery
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.snapshot import (
+        load_snapshot, save_snapshot)
+
+    rng = np.random.default_rng(31)
+    n = 20_000
+    peers = [uuid.UUID(int=0xE000 + i) for i in range(n // 4)]
+    cubes = rng.integers(-60, 60, (n, 3)).astype(np.int64) * 16
+    owner = rng.integers(0, len(peers), n)
+    src = CudaSpatialBackend(16, device="cuda")
+    for w in range(2):
+        sel = np.flatnonzero(np.arange(n) % 2 == w)
+        src.bulk_add_subscriptions(f"w{w}", [peers[i] for i in owner[sel]],
+                                   cubes[sel])
+    src.flush()
+    for i in range(0, len(peers), 13):
+        src.remove_peer(peers[i])
+    src.flush()
+    path = str(tmp_path / "card.npz")
+    saved = save_snapshot(src, path)
+    outs = []
+    for device in ("cuda", "cpu"):
+        dst = CudaSpatialBackend(16, device=device)
+        assert load_snapshot(dst, path)[0] == saved
+        outs.append(dst)
+    queries = [LocalQuery(f"w{i % 2}", Vector3(*map(float, cubes[i] + 2)),
+                          peers[owner[i]], Replication.EXCEPT_SELF)
+               for i in range(0, n, 17)]
+
+    def rows(b):
+        worlds, ps, wid, cube, pid = b.export_rows()
+        return sorted((worlds[w], ps[p], tuple(c)) for w, c, p in
+                      zip(wid.tolist(), cube.tolist(), pid.tolist()))
+
+    want = [set(t) for t in src.match_local_batch(queries)]
+    for dst in outs:
+        assert rows(dst) == rows(src)
+        assert [set(t) for t in dst.match_local_batch(queries)] == want
+
+
+def test_interest_tick_on_card_equals_cpu():
+    """One entity plane with an InterestManager on the card and one on
+    the CPU, fed the same messages: the keyframe tick and a delta tick
+    emit the same frames, byte for byte, to the same recipients."""
+    _need_card()
+    import asyncio
+    import uuid
+
+    from worldql_server_tpu_torch.engine.peers import PeerMap
+    from worldql_server_tpu_torch.entities import ColumnarIngest, EntityPlane
+    from worldql_server_tpu_torch.interest import InterestManager
+    from worldql_server_tpu_torch.protocol import (
+        Instruction, Message, deserialize_message, serialize_message)
+    from worldql_server_tpu_torch.protocol.types import Entity, Vector3
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+
+    rng = np.random.default_rng(44)
+    peers = [uuid.UUID(int=0xF100 + i) for i in range(8)]
+    datas = []
+    for i in range(2000):
+        p = peers[i % len(peers)]
+        vel = rng.uniform(-20, 20, 3).astype(np.float32)
+        datas.append(serialize_message(Message(
+            instruction=Instruction.LOCAL_MESSAGE, sender_uuid=p,
+            world_name="w", entities=[Entity(
+                uuid=uuid.UUID(int=(1 << 90) + i),
+                position=Vector3(*map(float, rng.uniform(-60, 60, 3))),
+                world_name="w",
+                flex=vel.tobytes() if i % 3 == 0 else None)])))
+    frames = []
+    for device in ("cuda", "cpu"):
+        plane = EntityPlane(CpuSpatialBackend(16), PeerMap(), cube_size=16,
+                            k=8, dt=0.05, bounds=1000.0, device=device)
+        plane.interest = InterestManager(near_radius=30.0,
+                                         clock=lambda: 0.0)
+        ingest = ColumnarIngest(plane, sender_known=lambda u: True)
+
+        async def slow(data, plane=plane):
+            plane.ingest(deserialize_message(data))
+
+        asyncio.run(ingest.process_batch(list(datas), slow))
+        ticks = []
+        for _ in range(2):
+            pairs = plane.apply(plane.collect_tick(plane.dispatch_tick()))
+            ticks.append([(m.wire, [str(t) for t in ts]) for m, ts in pairs])
+        frames.append(ticks)
+    assert frames[0] == frames[1]
+    assert frames[0][0] and frames[0][1]  # keyframes, then deltas

@@ -76,6 +76,15 @@ def test_port_imports_with_jax_and_the_jax_package_poisoned():
         "import worldql_server_tpu_torch.transports.zeromq\n"
         "import worldql_server_tpu_torch.transports.http\n"
         "import worldql_server_tpu_torch.transports.websocket\n"
+        "import worldql_server_tpu_torch.delivery.plane\n"
+        "import worldql_server_tpu_torch.delivery.worker\n"
+        "import worldql_server_tpu_torch.interest.manager\n"
+        "import worldql_server_tpu_torch.interest.replay\n"
+        "import worldql_server_tpu_torch.robustness.sessions\n"
+        "import worldql_server_tpu_torch.robustness.overload\n"
+        "import worldql_server_tpu_torch.spatial.snapshot\n"
+        "import worldql_server_tpu_torch.storage.pgwire\n"
+        "import worldql_server_tpu_torch.storage.postgres_store\n"
         "print('ok')\n"
     )
     env = dict(os.environ, WQL_TORCH_DEVICE="cpu")

@@ -36,8 +36,10 @@ transport lags behind the ticks.
   ``--resilience on`` boots and serves.
 
 Also: ``python -m worldql_server_tpu_torch --help`` boots, and the
-port's config accepts ``cuda``, the query library and resilience, and
-rejects every subsystem it does not have yet.
+port's config accepts ``cuda``, the query library, resilience, the
+delivery plane, sessions, the overload governor, interest management
+and index snapshots, and rejects every subsystem it does not have yet
+(the ``sharded`` index, the cluster tier, the SLO engine).
 """
 
 from __future__ import annotations
@@ -389,10 +391,7 @@ def test_cli_without_a_card_exits_with_an_error():
 
 @pytest.mark.parametrize("field,value", [
     ("spatial_backend", "tpu"), ("spatial_backend", "sharded"),
-    ("delivery_workers", 1),
-    ("session_ttl", 5.0), ("overload", "on"),
-    ("interest", "on"), ("cluster_shards", 2), ("slo", "on"),
-    ("index_snapshot", "idx.snap"),
+    ("cluster_shards", 2), ("slo", "on"),
 ])
 def test_config_rejects_unported(field, value):
     config = _config(TConfig, **{field: value})
@@ -404,13 +403,27 @@ def test_config_rejects_unported(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("query_kinds", "on"), ("resilience", "on"),
+    ("delivery_workers", 1), ("session_ttl", 5.0), ("overload", "on"),
+    ("interest", "on"), ("index_snapshot", "idx.snap"),
 ])
 def test_config_accepts_ported(field, value):
-    """The query library and the resilient backend are ported: they
-    validate over the cuda index and over the cpu one."""
+    """The query library, the resilient backend, the delivery plane,
+    sessions, the overload governor, interest management and index
+    snapshots are ported: they validate over the cuda index and over
+    the cpu one — but interest, which rides the entity plane, and so the
+    device index, is refused over the cpu index as the JAX package
+    refuses it."""
     _config(TConfig, **{field: value}).validate()
-    _config(TConfig, entity_sim=False, spatial_backend="cpu",
-            **{field: value}).validate()
+    cpu = _config(TConfig, entity_sim=False, spatial_backend="cpu",
+                  **{field: value})
+    if field != "interest":
+        cpu.validate()
+        return
+    ref = _config(JConfig, entity_sim=False, spatial_backend="cpu",
+                  interest="on")
+    for config in (cpu, ref):
+        with pytest.raises(ValueError, match="interest requires entity_sim"):
+            config.validate()
 
 
 def test_config_accepts_cuda():

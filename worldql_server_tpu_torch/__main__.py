@@ -1,9 +1,14 @@
 """CLI entry point of the PyTorch/CUDA port
 (``python -m worldql_server_tpu_torch``).
 
-The flag surface is the JAX package's; settings whose subsystem is not
-ported yet fail validation with a "not yet ported" config error
-(engine/config.py). The entity simulation runs on the card unless
+The flag surface is the JAX package's. Ported: the cuda and cpu
+indexes, the entity simulation, the query library, resilience, the
+delivery plane (``--delivery-workers``), sessions (``--session-ttl``),
+the overload governor (``--overload``), interest-managed fan-out
+(``--interest``) and index snapshots (``--index-snapshot``). The
+``sharded`` index, the cluster flags and the SLO engine are not ported
+yet and fail validation with a "not yet ported" config error
+(engine/config.py). The device work runs on the card unless
 ``WQL_TORCH_DEVICE=cpu`` asks for the CPU.
 
 Flag surface mirrors the reference's clap Args (worldql_server/src/
@@ -273,7 +278,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "dirty bits, a persistent incrementally-"
                         "updated device hash, and result reuse for "
                         "clean queries/entities; 'auto' (default) "
-                        "enables where supported (single-chip tpu), "
+                        "enables where supported (the cuda index), "
                         "'off' pins full recompute byte for byte")
     p.add_argument("--delta-rebuild-threshold", type=float,
                    dest="delta_rebuild_threshold",
@@ -291,13 +296,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(world-sharded engines with per-shard WALs; "
                         "cross-shard delivery over inter-shard "
                         "shared-memory rings); 0 (default) = the "
-                        "single-process server, byte for byte")
+                        "single-process server, byte for byte; not "
+                        "yet ported)")
     p.add_argument("--cluster-role", choices=["router", "shard"],
                    dest="cluster_role",
                    help="cluster process role: 'router' (implied by "
                         "--cluster-shards N) or 'shard' (spawned by the "
                         "router-tier supervisor; requires the "
-                        "WQL_CLUSTER_SPEC topology env)")
+                        "WQL_CLUSTER_SPEC topology env; not yet "
+                        "ported)")
     p.add_argument("--autoshard", choices=["off", "on"],
                    dest="cluster_autoshard",
                    help="live resharding: 'on' arms the router-side "
@@ -349,11 +356,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-core delivery floor, WAL fsync p99) with "
                         "fast/slow-window burn-rate alerting — the slo "
                         "gauge, a /healthz block, and GET /debug/slo "
-                        "(default off = no SLO surface at all)")
+                        "(default off = no SLO surface at all; not "
+                        "yet ported)")
     p.add_argument("--slo-file", dest="slo_file",
                    help="JSON objective registry replacing the "
                         "built-in defaults (per-objective targets and "
-                        "burn windows); implies --slo on")
+                        "burn windows); implies --slo on (not yet "
+                        "ported)")
     p.add_argument("--incident-dir", dest="incident_dir",
                    help="write one correlated incident capsule (JSON) "
                         "here on each SLO BURNING transition; bounded "

@@ -18,13 +18,14 @@ flag surface is the same. The device index is ``cuda``
 (spatial/cuda_backend.py, the port of the JAX package's ``tpu``
 backend); ``tpu`` is refused with a pointer to it. ``validate()``
 rejects every setting whose subsystem the port does not have yet with
-a "not yet ported" error — the ``sharded`` mesh index, the delivery
-plane, sessions, the overload governor, interest management, the
-cluster tier, the SLO engine and index snapshots. The query library
-(``query_kinds``, on by default as in the JAX package) and the
-resilient backend (``resilience``, off by default) are ported. As in
-the JAX package, ``entity_sim`` and ``delta_ticks='on'`` require the
-device index.
+a "not yet ported" error — the ``sharded`` mesh index, the cluster
+tier and the SLO engine. The query library (``query_kinds``, on by
+default as in the JAX package), the resilient backend
+(``resilience``), the delivery plane (``delivery_workers``), sessions
+(``session_ttl``), the overload governor (``overload``), interest
+management (``interest``) and index snapshots (``index_snapshot``) are
+ported, off by default as in the JAX package. As in the JAX package,
+``entity_sim`` and ``delta_ticks='on'`` require the device index.
 """
 
 from __future__ import annotations
@@ -631,6 +632,13 @@ class Config:
             errors.append("tick_pipeline must be >= 1 (1 = no overlap)")
         if self.delivery_workers < 0:
             errors.append("delivery_workers must be >= 0 (0 = in-process)")
+        if self.delivery_workers:
+            from ..delivery.ring import RING_MIN_BYTES
+
+            if self.delivery_ring_bytes < RING_MIN_BYTES:
+                errors.append(
+                    f"delivery_ring_bytes must be >= {RING_MIN_BYTES}"
+                )
         if self.durability not in ("off", "wal", "sync"):
             errors.append("durability must be 'off', 'wal' or 'sync'")
         elif self.durability != "off" and not self.wal_dir:
@@ -813,20 +821,10 @@ class Config:
         """One "not yet ported" error per setting whose subsystem the
         port does not have yet (ROADMAP.md queues each)."""
         unported = []
-        if self.delivery_workers > 0:
-            unported.append("delivery_workers > 0 (delivery plane)")
-        if self.session_ttl > 0:
-            unported.append("session_ttl > 0 (sessions)")
-        if self.overload == "on":
-            unported.append("overload='on' (overload governor)")
-        if self.interest == "on":
-            unported.append("interest='on' (interest-managed fan-out)")
         if self.cluster_shards > 0 or self.cluster_role:
             unported.append("cluster_shards/cluster_role (cluster tier)")
         if self.slo_enabled:
             unported.append("slo='on'/slo_file (SLO engine)")
-        if self.index_snapshot:
-            unported.append("index_snapshot (index snapshots)")
         return [
             f"{what} is not yet ported to worldql_server_tpu_torch"
             for what in unported

@@ -10,13 +10,19 @@ What the port wires today (ROADMAP.md lists the rest): the
 subscription index — the device ``cuda`` index (spatial/cuda_backend.py,
 with delta ticks, staged dispatch, the boot tier walk and device
 telemetry) or the host ``cpu`` AreaMap, optionally inside the
-``--resilience on`` wrapper (robustness/resilient.py) — the spatial
-query library (``--query-kinds``, on by default), the entity
-simulation plane (``--entity-sim``: ``entities/`` + ``ops/tick.py`` +
-the CUDA kNN kernel) on the same device as the index, the ticker,
-router, transports, durability and the flight recorder. ``Config.validate()``
-rejects the subsystems that are not ported yet, so none of their wiring
-exists here.
+``--resilience on`` wrapper (robustness/resilient.py) — with its
+``--index-snapshot`` restore at boot and save at stop
+(spatial/snapshot.py), the spatial query library (``--query-kinds``, on
+by default), the entity simulation plane (``--entity-sim``:
+``entities/`` + ``ops/tick.py`` + the CUDA kNN kernel) on the same
+device as the index with interest-managed fan-out (``--interest on``,
+interest/), the delivery plane's sender workers (``--delivery-workers
+N``, delivery/), session continuity (``--session-ttl``,
+robustness/sessions.py), the overload governor (``--overload on``,
+robustness/overload.py), the ticker, router, transports, durability and
+the flight recorder. ``Config.validate()`` rejects the subsystems that
+are not ported yet (the cluster tier, the SLO engine), so none of their
+wiring exists here.
 """
 
 from __future__ import annotations
@@ -141,9 +147,72 @@ class WorldQLServer:
             backoff_base=config.supervisor_backoff,
             budget=config.supervisor_budget,
         )
+        # Multi-core delivery plane (delivery/plane.py): sender worker
+        # processes owning disjoint socket shards, fed by per-worker
+        # shared-memory rings. The workers are spawned processes that
+        # import neither torch nor the device code. None with
+        # --delivery-workers 0 (the default) — the PeerMap then takes
+        # its unchanged in-process path.
+        self.delivery_plane = None
+        if config.delivery_workers > 0:
+            from ..delivery import DeliveryPlane
+
+            self.delivery_plane = DeliveryPlane(
+                config,
+                metrics=self.metrics,
+                tracer=self.tracer,
+                on_peer_lost=self._on_delivery_peer_lost,
+            )
+            if self.recorder is not None:
+                # worker-plane trace stitching: /debug/ticks grafts the
+                # workers' ring-dwell + write-time spans under
+                # tick.deliver
+                self.recorder.stitcher = self.delivery_plane.stitch
+        self._delivery_evictions: set = set()
+        # Session continuity (robustness/sessions.py): with
+        # --session-ttl > 0 a dropped peer's logical state parks for
+        # the TTL instead of tearing down, and a reconnect presenting
+        # the handshake-minted token rebinds to it. None with TTL 0
+        # (the default).
+        self.sessions = None
+        if config.session_ttl > 0:
+            from ..robustness.sessions import SessionStore
+
+            self.sessions = SessionStore(
+                config.session_ttl,
+                metrics=self.metrics,
+                on_expire=self._expire_session,
+            )
         self.peer_map = PeerMap(
             on_remove=self._on_peer_remove, metrics=self.metrics,
+            plane=self.delivery_plane, sessions=self.sessions,
         )
+        # Overload control plane (robustness/overload.py): admission
+        # governor for router, ticker and entity plane. None with
+        # --overload off (the default).
+        self.governor = None
+        if config.overload == "on":
+            from ..robustness.overload import OverloadGovernor
+
+            budget_ms = config.overload_tick_budget_ms
+            if not budget_ms and config.tick_interval > 0:
+                # the deadline IS the tick window: slower can't hold rate
+                budget_ms = config.tick_interval * 1e3
+            self.governor = OverloadGovernor(
+                max_batch=config.max_batch,
+                tick_budget_ms=budget_ms,
+                deadline_k=config.overload_deadline_k,
+                recover_ticks=config.overload_recover_ticks,
+                min_batch=min(config.overload_min_batch, config.max_batch),
+                peer_rate=config.overload_peer_rate,
+                peer_burst=config.overload_peer_burst,
+                evict_after=config.overload_evict_after,
+                rss_limit_mb=config.overload_rss_limit_mb,
+                resume_rate=config.session_resume_rate,
+                metrics=self.metrics,
+                loop_monitor=self.loop_monitor,
+                on_evict=self._on_rate_limit_evict,
+            )
         # Spatial query library (queries/): wire-level cone / raycast /
         # kNN / density queries riding the staged columns. 'off' (or an
         # unregistered parameter) keeps every query a plain radius
@@ -177,6 +246,9 @@ class WorldQLServer:
         # --entity-sim mode (validate() guarantees a ticker for it).
         self.entity_plane = None
         self.entity_ingest = None
+        # Interest-managed fan-out (--interest on): built below only
+        # alongside the entity plane (validate() enforces the pairing)
+        self.interest = None
         if config.entity_sim:
             from ..entities import ColumnarIngest, EntityPlane
 
@@ -189,6 +261,7 @@ class WorldQLServer:
                 max_entities=config.entity_max,
                 metrics=self.metrics,
                 tracer=self.tracer,
+                governor=self.governor,
                 delta_ticks=config.delta_ticks,
                 delta_rebuild_threshold=config.delta_rebuild_threshold,
                 device=device,
@@ -201,9 +274,32 @@ class WorldQLServer:
             self.entity_ingest = ColumnarIngest(
                 self.entity_plane,
                 sender_known=self.peer_map.__contains__,
+                governor=self.governor,
                 metrics=self.metrics,
                 on_error=lambda: self.metrics.inc("zmq.recv_errors"),
             )
+            if config.interest == "on":
+                from ..interest import InterestManager
+
+                self.interest = InterestManager(
+                    near_radius=config.lod_near_radius,
+                    far_every_k=config.lod_far_every_k,
+                    bandwidth_bytes=config.peer_bandwidth_bytes,
+                    metrics=self.metrics,
+                )
+                self.entity_plane.interest = self.interest
+                # every loss path funnels into ONE resync hook: local
+                # map-miss/send-error, worker-plane ring drops, and
+                # frames that landed on a parked session
+                self.peer_map.on_frame_loss = self.interest.mark_resync
+                if self.delivery_plane is not None:
+                    self.delivery_plane.on_frame_drop = (
+                        self.interest.mark_resync
+                    )
+                if self.sessions is not None:
+                    self.sessions.on_undelivered = (
+                        self.interest.mark_resync
+                    )
             if hasattr(self.backend, "_note_failure"):
                 # a ResilientBackend rebuild/failover swaps the inner
                 # index out from under an in-flight sim tick: the
@@ -233,6 +329,7 @@ class WorldQLServer:
                 device_telemetry=self.device_telemetry,
                 staging=self.staging,
                 entity_plane=self.entity_plane,
+                governor=self.governor,
                 heatmap=self.heatmap,
             )
         self.precompile_stats: dict | None = None
@@ -266,12 +363,15 @@ class WorldQLServer:
             ticker=self.ticker, metrics=self.metrics,
             durability=self.durability, tracer=self.tracer,
             entity_plane=self.entity_plane,
+            governor=self.governor,
             query_limits=self.query_limits,
             heatmap=self.heatmap,
         )
         self._register_gauges()
         self._transports: list = []
         self._started = asyncio.Event()
+        self._restored_peers: list = []
+        self._snapshot_save_disabled = False
 
     def _register_gauges(self) -> None:
         self.metrics.gauge("peers", self.peer_map.size)
@@ -324,8 +424,25 @@ class WorldQLServer:
         self.metrics.gauge(
             "failpoints", failpoints.registry.fired_counts
         )
+        if self.delivery_plane is not None:
+            # aggregate + per-worker delivery counters: the workers'
+            # cumulative stats ride the control channel into these
+            # gauges (and diff into delivery.* counters)
+            self.metrics.gauge("delivery", self.delivery_plane.stats)
+            for i in range(self.config.delivery_workers):
+                self.metrics.gauge(
+                    f"delivery.worker.{i}",
+                    lambda i=i: self.delivery_plane.worker_stats(i),
+                )
+        if self.sessions is not None:
+            # minted/parked/resumed/expired and undelivered frames
+            self.metrics.gauge("sessions", self.sessions.stats)
         if self.entity_plane is not None:
             self.metrics.gauge("entity_sim", self.entity_plane.stats)
+        if self.interest is not None:
+            # per-recipient fan-out accounting: resyncs, delta ratio,
+            # LOD tier sizes, bandwidth deferrals/shed
+            self.metrics.gauge("interest", self.interest.stats)
         if self.entity_ingest is not None:
             self.metrics.gauge("entity_ingest", self.entity_ingest.stats)
         # codec health: the WQL_MAX_OBJS overflow fallback is counted,
@@ -333,6 +450,9 @@ class WorldQLServer:
         from ..protocol import codec_stats
 
         self.metrics.gauge("codec", lambda: dict(codec_stats))
+        if self.governor is not None:
+            # governor state + shed/coalesce/rate-limit accounting
+            self.metrics.gauge("overload", self.governor.status)
         if self.recorder is not None:
             self.metrics.gauge("flight_recorder", self.recorder.stats)
         if self.loop_monitor is not None:
@@ -360,6 +480,39 @@ class WorldQLServer:
         )
         self.metrics.inc("server.escalations")
         self.shutdown_requested.set()
+
+    def delivery_status(self) -> dict | None:
+        """Delivery-plane state for /healthz (worker liveness, restart
+        and drop counts, per-worker stats freshness); None with
+        --delivery-workers 0. A worker whose stats push went silent
+        for 3 control-channel intervals counts as degraded."""
+        if self.delivery_plane is None:
+            return None
+        status = self.delivery_plane.stats()
+        status["degraded"] = self.delivery_plane.degraded()
+        status["stats_age_s"] = {
+            str(i): (
+                round(age, 3)
+                if (age := self.delivery_plane.stats_age_s(i)) is not None
+                else None
+            )
+            for i in range(self.config.delivery_workers)
+        }
+        return status
+
+    def sessions_status(self) -> dict | None:
+        """Session-continuity state for /healthz; None with
+        --session-ttl 0."""
+        if self.sessions is None:
+            return None
+        return self.sessions.stats()
+
+    def overload_status(self) -> dict | None:
+        """Governor state + shed accounting for /healthz; None with
+        --overload off."""
+        if self.governor is None:
+            return None
+        return self.governor.status()
 
     def _delta_status(self) -> dict:
         """Temporal-coherence accounting (the ``delta`` gauge):
@@ -399,19 +552,99 @@ class WorldQLServer:
             status["recovery"] = self.last_recovery.as_dict()
         return status
 
+    def _on_rate_limit_evict(self, uuid) -> None:
+        """Overload-governor eviction hook: a peer exhausted its abuse
+        budget (``overload_evict_after`` consecutive rate-limited
+        messages). Leaves through the normal ``PeerMap.remove`` path,
+        like the failed-send and worker-lost evictions."""
+        self.metrics.inc("peers.evicted_rate_limited")
+        task = asyncio.get_running_loop().create_task(  # wql: allow(unsupervised-task)
+            self.peer_map.remove(uuid)
+        )
+        self._delivery_evictions.add(task)
+        task.add_done_callback(self._delivery_evictions.discard)
+
     def _on_peer_remove(self, uuid) -> None:
-        """Disconnect cleanup: purge the spatial index (the remove_rx
-        path, thread.rs:124-126), the peer's entity slots, and its
-        per-transport socket state."""
-        self.backend.remove_peer(uuid)
-        if self.entity_plane is not None:
-            # entity slots + refcounts of the departed peer; its index
-            # rows (entity-derived included) are already purged above
-            self.entity_plane.on_peer_removed(uuid)
+        """Disconnect cleanup. With sessions enabled and a session
+        minted for this peer, the TRANSPORT state is released (delivery
+        shard slot, connect-back sockets) but the logical state —
+        subscription index rows, entity slots, governor bucket — PARKS
+        for the TTL; otherwise the full teardown runs."""
+        if self.sessions is not None and self.sessions.park(uuid):
+            if self.interest is not None:
+                # the transport died with frames possibly in flight —
+                # whatever resumes this session must start from a full
+                self.interest.mark_resync(uuid)
+            self._release_transport_state(uuid)
+            return
+        self._teardown_peer_state(uuid)
+
+    def _release_transport_state(self, uuid) -> None:
+        """Drop everything bound to the peer's (dead or superseded)
+        transport: the delivery-plane shard slot and per-transport
+        socket state. Logical state untouched."""
+        if self.delivery_plane is not None:
+            # worker-owned socket: the owning shard closes its end
+            self.delivery_plane.release(uuid)
         for transport in self._transports:
             hook = getattr(transport, "on_peer_removed", None)
             if hook is not None:
                 hook(uuid)
+
+    def _teardown_peer_state(self, uuid) -> None:
+        """The normal removal path's state teardown: purge the spatial
+        index (the remove_rx path, thread.rs:124-126), entity slots,
+        governor bookkeeping, and transport/delivery socket state.
+        Session expiry funnels through here too."""
+        if self.sessions is not None:
+            # a torn-down peer's token must never resume
+            self.sessions.discard(uuid)
+        self.backend.remove_peer(uuid)
+        if self.governor is not None:
+            # token bucket bookkeeping stays bounded by live peers
+            self.governor.forget_peer(uuid)
+        if self.entity_plane is not None:
+            # entity slots + refcounts of the departed peer; its index
+            # rows (entity-derived included) are already purged above
+            self.entity_plane.on_peer_removed(uuid)
+        self._release_transport_state(uuid)
+
+    def _expire_session(self, uuid) -> None:
+        """Session-sweeper expiry hook: the parked state's TTL ran out
+        — reclaim through the normal teardown."""
+        self._teardown_peer_state(uuid)
+
+    def prepare_rebind(self, uuid):
+        """First half of a session resume: silently detach the stale
+        old transport binding (no PeerDisconnect broadcast, no state
+        teardown) and release its shard slot + sockets, so the caller
+        can adopt + rebind the fresh binding — possibly onto a
+        different delivery-plane shard. Returns the detached Peer, or
+        None when the peer was already out of the map (parked)."""
+        old = self.peer_map.detach(uuid)
+        self._release_transport_state(uuid)
+        if self.interest is not None:
+            # resume contract: the rebound binding's first frame is a
+            # forced full regardless of what the old transport saw
+            self.interest.mark_resync(uuid)
+        return old
+
+    def _on_delivery_peer_lost(self, uuid, reason: str) -> None:
+        """Delivery-plane eviction hook: a sender worker reported a
+        failed/overflowing peer, or died with peers on its shard. The
+        parent stays authoritative — eviction goes through the normal
+        ``PeerMap.remove``, exactly like the in-process failed-send
+        path."""
+        self.metrics.inc(f"peers.evicted_{reason}")
+        if self.interest is not None:
+            # worker loss / ring eviction: a parked-then-resumed
+            # session's next frame must be full
+            self.interest.mark_resync(uuid)
+        task = asyncio.get_running_loop().create_task(  # wql: allow(unsupervised-task)
+            self.peer_map.remove(uuid)
+        )
+        self._delivery_evictions.add(task)
+        task.add_done_callback(self._delivery_evictions.discard)
 
     async def start(self) -> None:
         """Bring up the store and all enabled transports (main.rs:106-207)."""
@@ -429,12 +662,18 @@ class WorldQLServer:
             self.durability.start(supervisor=self.supervisor)
             if self.config.checkpoint_interval > 0:
                 self.supervisor.spawn("checkpoint", self._checkpoint_loop)
+        self._restore_index_snapshot()
         self._precompile_tiers()
 
         if self.loop_monitor is not None:
             # loop-health probe: supervised but not critical
             self.loop_monitor.install()
             self.supervisor.spawn("loop-monitor", self.loop_monitor.run)
+
+        if self.delivery_plane is not None:
+            # before any transport: workers must be ready to adopt the
+            # first handshake
+            await self.delivery_plane.start()
 
         if self.config.ws_enabled:
             from ..transports.websocket import WebSocketTransport
@@ -458,8 +697,24 @@ class WorldQLServer:
             await zmq_t.start()
             self.supervisor.spawn("stale-sweep", self._staleness_sweeper)
 
+        if self.sessions is not None:
+            # supervised reclamation: expired parked sessions leave
+            # through the normal teardown even if a sweep pass raises
+            self.supervisor.spawn("session-sweep", self.sessions.sweep)
+
         if self.ticker is not None:
             self.ticker.start()
+
+        if self.governor is not None and self.ticker is None:
+            # immediate-mode servers have no tick clock — a supervised
+            # sampler keeps the lag/RSS signals evaluating; with a
+            # ticker, note_tick drives everything
+            self.supervisor.spawn("overload-governor", self.governor.run)
+
+        if self._restored_peers:
+            self.supervisor.spawn(
+                "restored-peer-sweep", self._sweep_restored_peers
+            )
 
         self._started.set()
         logger.info("worldql-server-tpu-torch started")
@@ -519,6 +774,78 @@ class WorldQLServer:
             await asyncio.sleep(self.config.zmq_timeout_secs)
             await self._sweep_stale_once()
 
+    def _restore_index_snapshot(self) -> None:
+        """Reload the subscription index saved by the last shutdown
+        through the index's bulk-load path (onto the card for the cuda
+        index) — clients that reconnect under the SAME UUID keep their
+        area subscriptions across a restart. Restored rows whose owner
+        has not reconnected within the staleness window are swept. A
+        missing file is a fresh start; a bad one is loudly skipped — and
+        the shutdown save is then disabled so the failing-but-intact
+        file is never clobbered with an empty index."""
+        path = self.config.index_snapshot
+        if not path:
+            return
+        import os
+
+        from ..spatial.snapshot import load_snapshot
+
+        if not os.path.exists(path):
+            logger.info("index snapshot %s not found — starting empty", path)
+            return
+        try:
+            _, self._restored_peers = load_snapshot(self.backend, path)
+        except Exception:
+            logger.exception(
+                "index snapshot %s failed to load — starting empty; the "
+                "file is preserved (shutdown will not overwrite it)", path
+            )
+            self._snapshot_save_disabled = True
+
+    def _save_index_snapshot(self, sweep_restored: bool = True) -> None:
+        path = self.config.index_snapshot
+        if not path:
+            return
+        # Complete any pending restored-peer sweep synchronously first:
+        # a restart shorter than the staleness window must not
+        # re-persist ghost rows forever. Periodic checkpoints pass
+        # sweep_restored=False — mid-serving, restored peers may still
+        # be inside their reconnect grace window.
+        if sweep_restored:
+            for peer in self._restored_peers:
+                if self.peer_map.get(peer) is None:
+                    self.backend.remove_peer(peer)
+            self._restored_peers = []
+        if self._snapshot_save_disabled:
+            logger.warning(
+                "index snapshot %s NOT saved: the boot-time load failed "
+                "and overwriting would destroy the previous state", path
+            )
+            return
+        from ..spatial.snapshot import save_snapshot
+
+        try:
+            save_snapshot(self.backend, path)
+        except Exception:
+            logger.exception("index snapshot %s failed to save", path)
+
+    async def _sweep_restored_peers(self) -> None:
+        """Evict restored subscriptions whose owners never came back:
+        one staleness window after boot, any restored peer absent from
+        the peer map loses its rows."""
+        await asyncio.sleep(self.config.zmq_timeout_secs)
+        swept = 0
+        for peer in self._restored_peers:
+            if self.peer_map.get(peer) is None:
+                if self.backend.remove_peer(peer):
+                    swept += 1
+        self._restored_peers = []
+        if swept:
+            logger.info(
+                "swept restored subscriptions of %d peers that did not "
+                "reconnect", swept,
+            )
+
     async def _checkpoint_loop(self) -> None:
         """Periodic checkpoint timer — bounds the WAL (and therefore
         crash-recovery time) while serving."""
@@ -531,7 +858,7 @@ class WorldQLServer:
                 logger.exception("checkpoint failed — will retry")
 
     async def checkpoint(self) -> bool:
-        """Store flush → WAL segment truncation. Returns True when the
+        """Store flush → index snapshot → WAL segment truncation. Returns True when the
         WAL was actually truncated (every pending write-behind op
         reached the store first). Rotates FIRST so every entry in the
         sealed segments belongs to an op the drain below covers;
@@ -541,6 +868,7 @@ class WorldQLServer:
             return False
         boundary = await self.wal.rotate()
         await self.durability.drain()
+        self._save_index_snapshot(sweep_restored=False)
         self.metrics.inc("durability.checkpoints")
         if self.durability.dropped_batches:
             logger.warning(
@@ -555,6 +883,11 @@ class WorldQLServer:
         return True
 
     async def stop(self) -> None:
+        # Snapshot FIRST, synchronously: closing transports evicts the
+        # still-connected peers (disconnect cleanup would empty the
+        # index before a later save), and a cancellation-driven
+        # shutdown can interrupt any await below.
+        self._save_index_snapshot()
         if self.ticker is not None:
             await self.ticker.stop()
         # Ordered teardown of supervised loops: the periodic loops stop
@@ -562,7 +895,10 @@ class WorldQLServer:
         # transports stop their own recv tasks, and the durability
         # applier stays ALIVE until durability.stop() has drained the
         # write-behind queue.
-        for name in ("checkpoint", "stale-sweep", "loop-monitor"):
+        for name in (
+            "checkpoint", "stale-sweep", "restored-peer-sweep",
+            "session-sweep", "loop-monitor", "overload-governor",
+        ):
             handle = self.supervisor.get(name)
             if handle is not None:
                 await handle.stop()
@@ -571,6 +907,11 @@ class WorldQLServer:
         for transport in reversed(self._transports):
             await transport.stop()
         self._transports.clear()
+        if self.delivery_plane is not None:
+            # after the ticker drain (frames are already in the rings)
+            # and transport teardown: workers own their sockets, so
+            # they flush their rings to the clients and exit clean
+            await self.delivery_plane.stop()
         if self.durability is not None:
             # Drain the write-behind queue, then truncate the WAL only
             # on a CLEAN drain with no batch ever dropped.
