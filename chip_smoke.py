@@ -66,17 +66,41 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
    in-memory sinks register 100,000 entities with velocities in 4
    worlds through the router / ``ColumnarIngest`` path, and the ticker
    serves sim ticks at k=32 with every kernel's launch counter reset
-   just before and read just after — three times: at least 4 ticks with
-   every entity moving (full ticks), at least 4 with 1% moving (delta
+   just before and read just after — three times: at least 3 ticks with
+   every entity moving (full ticks), at least 3 with 1% moving (delta
    ticks at pow2 sub-tiers), and at least 5 with 1% moving through
    ``--interest on --delivery-workers 2``: the 64 peers are adopted by
-   the sender workers over socketpairs (the card host has neither
-   ``websockets`` nor ``pyzmq``), a reader thread splits the WebSocket
+   the sender workers over socketpairs (the card host has no
+   ``websockets``), a reader thread splits the WebSocket
    frames, and every peer's frames replayed through ``ReplayClient``
    refuse no delta, see no gap and equal the server's ledger, with no
    frame dropped at a ring; sampled frames are decoded and checked, and
    bytes per tick are printed beside the interest-off 1%-moving run's;
-10. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
+10. drives the cluster tier (``tools/cluster_drive.py``): the router of
+    ``python -m worldql_server_tpu_torch --cluster-shards 2
+    --spatial-backend cuda --entity-sim --entity-k 32 --slo on --no-ws``
+    with a ``memory://`` store, its two shard processes on the card
+    (each shard's ``/healthz`` must name cuda for its index and its
+    plane); 64 ZMQ peers through the router hold 60,000 entities (config
+    3 cut from 100,000 for time) in 4 worlds, two worlds and 30,000
+    entities a shard, 1% moving; at least 3 sim ticks a shard, entity
+    frames to the peers of every world, and one LocalMessage a world
+    whose recipients equal a single-process host index server's; then
+    ``POST /reshard`` moves a world (3,000 entities) between the shards
+    with LocalMessages and records in flight: the target imports what
+    the source exported, every LocalMessage reaches each recipient
+    once, every record reads back, the moved world's peers get frames
+    from the target, then 3 more ticks a shard; then a world of shard 1
+    (15,000 entities, config 3's even share at this depth, more than
+    the inter-shard ring drains a tick) moves to shard 0: its import
+    counts held, the ring's records sent, drained and dropped over that
+    move printed; the router's ``/healthz``,
+    ``/debug/slo`` and ``/metrics`` (strict-parsed) last. K7's launches
+    in the shards, in all and by shape, are read off their ``/healthz``;
+11. holds K7 to its plain version, bit for bit, at every ``(N, K)`` the
+    driven paths of 9 and 10 launched it at (warm-up, capacity and
+    delta sub-tiers, in this process and in the shards);
+12. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure; nothing is caught. Without a CUDA card,
@@ -162,16 +186,18 @@ def phase_build():
     return sources
 
 
-@phase("knn kernel vs plain")
-def phase_knn(torch, rates):
+def _knn_rows(torch, rates, shapes):
+    """K7 against its plain version on the card at each ``(N, K)`` of
+    ``shapes``, bit for bit, on Zipf-skewed runs made from the seed;
+    then both timed beside the kernel's bound. One row a shape."""
     from worldql_server_tpu_torch.ops.knn import (
         kernel_info, knn_select, knn_select_plain)
     from worldql_server_tpu_torch.tools.knn_bench import (
-        ITERS, SHAPES, cuda_time_ms, knn_bound, zipf_world)
+        ITERS, cuda_time_ms, knn_bound, zipf_world)
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     rows = []
-    for n, k in SHAPES:
+    for n, k in shapes:
         rid, peer, pos = (torch.from_numpy(a).cuda()
                           for a in zipf_world(n, k, SEED + n))
         got = knn_select(rid, peer, pos, k=k)
@@ -205,6 +231,35 @@ def phase_knn(torch, rates):
                    "smem_bytes")}}
         print("knn", json.dumps(row), flush=True)
         rows.append(row)
+    return rows
+
+
+@phase("knn kernel vs plain")
+def phase_knn(torch, rates):
+    from worldql_server_tpu_torch.tools.knn_bench import SHAPES
+
+    return _knn_rows(torch, rates, SHAPES)
+
+
+@phase("knn kernel vs plain at the paths' shapes")
+def phase_knn_paths(torch, rates, by_path):
+    """K7 held to its plain version at every ``(N, K)`` the driven
+    paths launched it at — warm-up tiers, capacity tiers and the delta
+    sub-tiers, in this process and in the cluster's shards (each
+    wrapper counts its launches by shape, read just after each path) —
+    beyond the two shapes of ``phase_knn``. ``by_path`` maps a path to
+    its ``[N, K, launches]`` lists."""
+    launched: dict = {}
+    for path, shapes in by_path.items():
+        for n, k, c in shapes:
+            launched.setdefault((n, k), {})[path] = c
+    print("knn shapes launched by path: " + json.dumps(
+        [[n, k, paths] for (n, k), paths in sorted(launched.items())]))
+    if not launched:
+        raise AssertionError(f"no kNN shape launched: {by_path}")
+    rows = _knn_rows(torch, rates, sorted(launched))
+    for row in rows:
+        row["launches_by_path"] = launched[(row["n"], row["k"])]
     return rows
 
 
@@ -414,6 +469,7 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
     config.validate()
 
     knn_select.launches = 0  # the main path's run starts here
+    knn_select.shapes = {}
     server = WorldQLServer(config, device=device)
     plane = server.entity_plane
     if (config.spatial_backend != "cuda"
@@ -519,6 +575,7 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
                 else None)
     await server.stop()
     launches = knn_select.launches  # read just after the main path
+    shapes = [[n, k, c] for (n, k), c in sorted(knn_select.shapes.items())]
 
     stats = plane.stats()
     ticks = plane.applied_ticks - start_applied
@@ -577,6 +634,7 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         "ingest_s": ingest_s, "ticks": ticks, "dispatched": dispatched,
         "delta_sim_ticks": delta_ticks, "full_sim_ticks":
             stats["full_sim_ticks"], "knn_launches": launches,
+        "knn_shapes": shapes,
         "tick_ms_p50": pct("tick_ms", 0.5),
         "tick_ms_p99": pct("tick_ms", 0.99),
         "integrate_ms_p50": pct("integrate_ms", 0.5),
@@ -1491,13 +1549,13 @@ def interest_ring_bytes(want=64 << 20):
 
 @phase("server on the card")
 def phase_server(torch):
-    # 4 + 4 served ticks (10 + 5 before the index phases took the room,
-    # 5 + 4 before the interest leg did)
+    # 3 + 3 served ticks (10 + 5 before the index phases took the room,
+    # 5 + 4 before the interest leg did, 4 + 4 before the cluster leg)
     report, launches = asyncio.run(
-        drive_server(torch, moving=1.0, min_ticks=4))
+        drive_server(torch, moving=1.0, min_ticks=3))
     print("server", json.dumps(report), flush=True)
     idle, idle_launches = asyncio.run(
-        drive_server(torch, moving=0.01, min_ticks=4))
+        drive_server(torch, moving=0.01, min_ticks=3))
     print("server", json.dumps(idle), flush=True)
     # interest-managed fan-out through two sender workers, at the same
     # shape and the same 1% movers: the keyframe tick, then >= 4 ticks
@@ -1529,14 +1587,110 @@ def phase_server(torch):
           f"delta_ratio {lean['delta_ratio']}", flush=True)
     print(f"knn launches: {launches} (all moving), {idle_launches} "
           f"(1% moving), {lean_launches} (interest + delivery workers)")
-    try:
-        import zmq  # noqa: F401
-        have_zmq = True
-    except ImportError:
-        have_zmq = False
-    print(f"zmq leg ran: false (pyzmq importable: {have_zmq}; the ZMQ "
-          "transport is held to the JAX server by tests/test_torch_server.py)")
-    return report, launches, lean_launches
+    shapes = {"entity_sim": report["knn_shapes"],
+              "entity_sim_1pct": idle["knn_shapes"],
+              "entity_sim_interest_delivery": lean["knn_shapes"]}
+    return report, launches, lean_launches, shapes
+
+
+#: the cluster leg's entities: config 3's 100,000 cut to 60,000, since
+#: at 100,000 the leg took 164-250 s on an NVIDIA H100 80GB HBM3 at
+#: 700 W, over its ~180 s (PERF.md section 4)
+CLUSTER_ENTITIES = 60_000
+
+
+@phase("cluster on the card")
+def phase_cluster(torch):
+    """The cluster tier on the card: a router and two ``--entity-sim``
+    shard processes on the cuda index (tools/cluster_drive.py), 64 ZMQ
+    peers holding ``CLUSTER_ENTITIES`` in 4 worlds, 1% moving, a live
+    move of one world between the shards, and the router's SLO surface.
+    Each shard starts with half the entities; the world held to zero
+    loss across its move holds 3,000 of them, since its peers stay homed
+    on the source and its frames then ride the inter-shard ring, which
+    the source drains 4,096 records a tick. Then a world of shard 1
+    holding an even share (15,000), larger than one drain, moves to
+    shard 0, and the ring's records sent, drained and dropped over that
+    move are printed (a known fault, ROADMAP Queue C). K7 runs in
+    the shard processes: its launches are read off each shard's
+    /healthz before the peers register and after the last tick, in all
+    and by shape."""
+    import importlib.util
+
+    from worldql_server_tpu_torch.tools.cluster_drive import drive_cluster
+
+    # the repo's strict exposition parser, by path: the card host may
+    # have another package named ``tests`` on its path
+    spec = importlib.util.spec_from_file_location(
+        "prom_parser", os.path.join(REPO, "tests", "prom_parser.py"))
+    prom_parser = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prom_parser)
+
+    torch.cuda.empty_cache()  # the shards open contexts of their own
+    ring = interest_ring_bytes()
+    report = asyncio.run(drive_cluster(
+        n_entities=CLUSTER_ENTITIES, n_peers=64, moving=0.01, k=32,
+        min_ticks=3, device="cuda", moved_share=3_000 / CLUSTER_ENTITIES,
+        move_large=True,
+        log=lambda line: print(line, flush=True), extra_args=(
+            # the target's ring carries the moved world's frames to its
+            # peers, homed on the source; a host-bound tick holds a
+            # shard's event loop for seconds, so heartbeats are judged
+            # over two minutes
+            "--delivery-ring-bytes", str(ring),
+            "--zmq-timeout-secs", "120")))
+    types, samples = prom_parser.validate_exposition(
+        report.pop("router_metrics"))
+    flat = {n: v for n, labels, v in samples if not labels}
+    health, slo = report["router_healthz"], report["router_slo"]
+    if health["cluster"]["alive"] != 2 or "slo" not in health:
+        raise AssertionError(f"router /healthz: {health}")
+    if not slo.get("objectives") or "wql_slo_worst" not in flat:
+        raise AssertionError(f"router SLO surface: {slo}")
+    for i, shard in enumerate(report["shards"]):
+        # 1% of the entities move, so no tick is a pure replay: every
+        # dispatched tick launches K7
+        if shard["knn_launches"] < shard["dispatched"]:
+            raise AssertionError(f"shard {i}: knn launches {shard}")
+        print(f"cluster shard {i}: {shard['sim_ticks']} sim ticks "
+              f"({shard['dispatched']} dispatched, {shard['knn_launches']} "
+              f"knn launches at [N, K, count] "
+              f"{json.dumps(shard['knn_shapes'])}), tick p50/p99 "
+              f"{shard['tick_ms_p50']}/"
+              f"{shard['tick_ms_p99']} ms, apply p50 {shard['apply_ms_p50']}"
+              f" ms, ring {json.dumps(shard['ring'])}", flush=True)
+    mig = report["migration"]
+    print(f"cluster migration of {report['moved']} shard "
+          f"{report['source']} -> {report['target']}: {mig['wall_s']:.3f} s, "
+          f"exported {json.dumps(mig['exported'])}, imported "
+          f"{json.dumps(mig['imported'])}, {mig['replayed']} parked frames "
+          f"replayed; {report['probes_across_move']} LocalMessages across "
+          f"the move, each to {report['probe_recipients'][report['moved']]}"
+          f" peers exactly once; {report['records']} records read back; "
+          f"{report['moved_world_frames_after_flip']} entity frames from "
+          "the target", flush=True)
+    large = report["move_large"]
+    print(f"cluster second move of {large['world']} ({large['entities']} "
+          f"entities, more than a ring drain) shard {large['source']} -> "
+          f"{large['target']}: {large['migration']['wall_s']:.3f} s, "
+          f"exported {json.dumps(large['migration']['exported'])}, "
+          f"imported {json.dumps(large['migration']['imported'])}; then "
+          f"{large['target_ticks']} target ticks: the world's peers got "
+          f"{large['frames_after_flip']} entity frames; inter-shard ring "
+          f"over the move (shard 0, shard 1): "
+          f"{json.dumps(large['ring'])}", flush=True)
+    print(f"cluster router: /healthz {json.dumps(health['slo'])}, "
+          f"/debug/slo state {slo['state']} over "
+          f"{len(slo['objectives'])} objectives, /metrics "
+          f"{len(samples)} samples strict-parsed", flush=True)
+    print(f"cluster leg {report['leg_s']:.1f} s (boot {report['boot_s']:.1f}"
+          f" s, register {report['register_s']:.1f} s), frames "
+          f"{report['frames']}, bytes {report['bytes']}, per world "
+          f"{json.dumps(report['world_frames'])}", flush=True)
+    print("cluster", json.dumps({k: v for k, v in report.items() if k not in
+                                 ("router_healthz", "router_slo")}),
+          flush=True)
+    return report
 
 
 def main() -> int:
@@ -1571,7 +1725,12 @@ def main() -> int:
     phase_churn(torch)
     phase_resilience(torch)
     phase_local_messages(torch)
-    report, launches, lean_launches = phase_server(torch)
+    report, launches, lean_launches, shapes = phase_server(torch)
+    cluster = phase_cluster(torch)
+    cluster_launches = sum(s["knn_launches"] for s in cluster["shards"])
+    path_rows = phase_knn_paths(torch, rates, {
+        **shapes, **{f"cluster_shard{i}": s["knn_shapes"]
+                     for i, s in enumerate(cluster["shards"])}})
 
     main_row = knn_rows[0]  # N=131,072, K=32: the server phase's shape
     kernels = {"kernels": [{
@@ -1581,11 +1740,15 @@ def main() -> int:
         "replaces": "worldql_server_tpu/ops/knn_pallas.py:174",
         # each path driven with the count set to 0 just before it and
         # read just after: the all-moving entity-sim server and the
-        # interest + delivery-workers server
-        "launches": launches + lean_launches,
+        # interest + delivery-workers server; the cluster's shards are
+        # processes of their own, so theirs is each shard's count
+        # (/healthz) after the last tick less its count before the peers
+        # registered
+        "launches": launches + lean_launches + cluster_launches,
         "launches_by_path": {"entity_sim": launches,
-                             "entity_sim_interest_delivery": lean_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in knn_rows),
+                             "entity_sim_interest_delivery": lean_launches,
+                             "cluster": cluster_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in knn_rows + path_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1596,6 +1759,9 @@ def main() -> int:
         "spill_bytes": main_row["spill_bytes"],
         "smem_bytes": main_row["smem_bytes"],
         "shapes": knn_rows,
+        # every (N, K) the driven paths launched, held to the plain
+        # version and timed, with its launches by path
+        "path_shapes": path_rows,
         "tick": tick_rows,
     }]}
     print(f"total wall {time.perf_counter() - t_all:.1f} s", flush=True)

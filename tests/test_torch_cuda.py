@@ -7,7 +7,8 @@ the card against the same op on the CPU, and ``CudaSpatialBackend`` on
 the card against the port's ``CpuSpatialBackend`` under churn — and the
 query library: its stencil kernels (K10, K11) on the card against the
 CPU, and a mixed kind batch through ``CudaSpatialBackend`` on the card
-against the cpu index's oracles.
+against the cpu index's oracles — and a cluster of two entity-sim shard
+processes on the card with a live move of a world between them.
 
 Every test carries the ``cuda`` marker and skips (with a reason) on a
 host without a card; whether there is one is decided inside each test.
@@ -98,10 +99,13 @@ def _shaped(case, n, k, seed):
 
 def _same_as_plain(rid, peer, pos, k):
     before = knn_select.launches
+    shape = (rid.shape[0], k)
+    shape_before = knn_select.shapes.get(shape, 0)
     got = knn_select(rid, peer, pos, k=k)
     want = knn_select_plain(rid, peer, pos, k=k)
     torch.cuda.synchronize()
     assert knn_select.launches == before + 1
+    assert knn_select.shapes[shape] == shape_before + 1
     assert torch.equal(got, want)
     return got
 
@@ -445,3 +449,29 @@ def test_interest_tick_on_card_equals_cpu():
         frames.append(ticks)
     assert frames[0] == frames[1]
     assert frames[0][0] and frames[0][1]  # keyframes, then deltas
+
+
+def test_cluster_of_entity_sim_shards_on_card(monkeypatch):
+    """Two ``--entity-sim`` shard processes on the card behind the
+    router (worldql_server_tpu_torch/tools/cluster_drive.py): each
+    shard's /healthz names cuda for its index and its plane, the kNN
+    kernel launches in the shards, a world moves to the other shard and
+    back with its index rows and entity rows equal (static entities),
+    and nothing sent across the move is lost."""
+    _need_card()
+    import asyncio
+
+    from worldql_server_tpu_torch.tools.cluster_drive import drive_cluster
+
+    monkeypatch.delenv("WQL_TORCH_DEVICE", raising=False)  # shards: cuda
+    report = asyncio.run(asyncio.wait_for(drive_cluster(
+        n_entities=2000, n_peers=8, moving=0.0, k=8,
+        spread=40.0, device="cuda", move_back=True), 240))
+    assert all(s["knn_launches"] > 0 for s in report["shards"])
+    # the same launches by shape, each at K=8
+    for shard in report["shards"]:
+        assert sum(c for _, _, c in shard["knn_shapes"]) == \
+            shard["knn_launches"]
+        assert {k for _, k, _ in shard["knn_shapes"]} == {8}
+    mig = report["migration"]
+    assert mig["imported"]["entities"] == mig["exported"]["entities"] == 500

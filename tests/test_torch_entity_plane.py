@@ -32,7 +32,10 @@ from worldql_server_tpu.spatial import jaxconf  # noqa: F401
 from worldql_server_tpu import entities as j_entities
 from worldql_server_tpu.engine.peers import PeerMap as JPeerMap
 from worldql_server_tpu.ops import tick as jt
+import worldql_server_tpu.protocol as j_protocol
 from worldql_server_tpu.protocol import Instruction, Message
+from worldql_server_tpu.protocol import codec as j_codec
+from worldql_server_tpu.protocol import native_codec as j_native_codec
 from worldql_server_tpu.protocol import deserialize_message as j_deser
 from worldql_server_tpu.protocol import serialize_message as j_ser
 from worldql_server_tpu.protocol.types import Entity, Vector3
@@ -40,6 +43,7 @@ from worldql_server_tpu.spatial.cpu_backend import CpuSpatialBackend as JCpu
 from worldql_server_tpu_torch import entities as t_entities
 from worldql_server_tpu_torch.engine.peers import PeerMap as TPeerMap
 from worldql_server_tpu_torch.ops import tick as tt
+from worldql_server_tpu_torch.protocol import codec as t_codec
 from worldql_server_tpu_torch.protocol import deserialize_message as t_deser
 from worldql_server_tpu_torch.protocol import serialize_message as t_ser
 from worldql_server_tpu_torch.spatial.cpu_backend import (
@@ -134,6 +138,28 @@ def _frames(pairs, ser):
         out.append((wire if wire is not None else ser(msg),
                     tuple(str(t) for t in targets)))
     return out
+
+
+def bind_one_serializer(monkeypatch):
+    """Make the JAX package serialize with the encoder the port bound.
+
+    Each package binds its native encoder only if
+    ``native/libwqlcodec.so`` existed when its ``protocol`` package was
+    imported, and the port builds the library at that import. On a tree
+    without the library the JAX package, imported first, keeps the
+    Python flatbuffers builder, which lays out the same ``Message`` in
+    other bytes (and other lengths: interest bandwidth admission charges
+    a frame its length, so even which frames go out differs). Frames
+    built as objects are comparable byte for byte only from one encoder,
+    so the JAX package gets its own native encoder, the one it binds
+    when the library is there at its import."""
+    if (j_codec._native is None) == (t_codec._native is None):
+        return
+    assert j_codec._native is None, "the port is the side that built it"
+    encode = j_native_codec.load().encode
+    monkeypatch.setattr(j_protocol, "serialize_message", encode)
+    monkeypatch.setattr(j_codec, "serialize_message", encode)
+    monkeypatch.setitem(globals(), "j_ser", encode)
 
 
 def _msg(sender, ents, world="w", parameter=None):

@@ -85,6 +85,13 @@ def test_port_imports_with_jax_and_the_jax_package_poisoned():
         "import worldql_server_tpu_torch.spatial.snapshot\n"
         "import worldql_server_tpu_torch.storage.pgwire\n"
         "import worldql_server_tpu_torch.storage.postgres_store\n"
+        "import worldql_server_tpu_torch.observability.slo\n"
+        "import worldql_server_tpu_torch.observability.incidents\n"
+        "import worldql_server_tpu_torch.cluster\n"
+        "import worldql_server_tpu_torch.cluster.dump_client\n"
+        "import worldql_server_tpu_torch.cluster.federation\n"
+        "import worldql_server_tpu_torch.cluster.tracectx\n"
+        "import worldql_server_tpu_torch.cluster.resharding\n"
         "print('ok')\n"
     )
     env = dict(os.environ, WQL_TORCH_DEVICE="cpu")

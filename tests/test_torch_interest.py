@@ -12,7 +12,8 @@
   ``_center_of`` and ``_encode_template`` read, and every peer's ledger.
   The native template encode is taken in both packages whenever
   ``native/libwqlcodec.so`` is there; the object encode is held to the
-  same bytes. Each peer's frames, replayed through the port's
+  same bytes, both packages serializing with the native encoder (see
+  ``bind_one_serializer``). Each peer's frames, replayed through the port's
   ``ReplayClient``, refuse no delta, see no gap, and end equal to the
   ledger.
 * Over real ZeroMQ, ``--entity-sim --interest on`` on the port (cuda
@@ -35,7 +36,8 @@ import numpy as np
 import pytest
 
 from tests.client_util import ZmqClient
-from tests.test_torch_entity_plane import Twin, _ent, _msg
+from tests.test_torch_entity_plane import (
+    Twin, _ent, _msg, bind_one_serializer)
 from tests.test_torch_server import _barrier, _config, _wait
 from worldql_server_tpu.engine.config import Config as JConfig
 from worldql_server_tpu.engine.server import WorldQLServer as JServer
@@ -88,7 +90,7 @@ class Recorder:
 
 
 @pytest.mark.parametrize("encode", ["native", "object"])
-def test_twin_planes_emit_equal_interest_frames(encode):
+def test_twin_planes_emit_equal_interest_frames(encode, monkeypatch):
     rng = np.random.default_rng(18)
     # full ticks only: one tick shape, so the eager JAX tick compiles
     # its ops once
@@ -110,6 +112,7 @@ def test_twin_planes_emit_equal_interest_frames(encode):
             plane._wire = None
         elif not native:
             pytest.skip("native/libwqlcodec.so is not built")
+    bind_one_serializer(monkeypatch)
     recs = [Recorder(jm), Recorder(tm)]
     ents = []
     for i in range(90):

@@ -37,9 +37,11 @@ transport lags behind the ticks.
 
 Also: ``python -m worldql_server_tpu_torch --help`` boots, and the
 port's config accepts ``cuda``, the query library, resilience, the
-delivery plane, sessions, the overload governor, interest management
-and index snapshots, and rejects every subsystem it does not have yet
-(the ``sharded`` index, the cluster tier, the SLO engine).
+delivery plane, sessions, the overload governor, interest management,
+index snapshots, the cluster tier and the SLO engine, and rejects the
+``sharded`` index, which it does not have yet. A boot warm-up that
+fails fails the port's boot, where the JAX server logs it and serves
+with cold caches.
 """
 
 from __future__ import annotations
@@ -391,7 +393,6 @@ def test_cli_without_a_card_exits_with_an_error():
 
 @pytest.mark.parametrize("field,value", [
     ("spatial_backend", "tpu"), ("spatial_backend", "sharded"),
-    ("cluster_shards", 2), ("slo", "on"),
 ])
 def test_config_rejects_unported(field, value):
     config = _config(TConfig, **{field: value})
@@ -405,14 +406,15 @@ def test_config_rejects_unported(field, value):
     ("query_kinds", "on"), ("resilience", "on"),
     ("delivery_workers", 1), ("session_ttl", 5.0), ("overload", "on"),
     ("interest", "on"), ("index_snapshot", "idx.snap"),
+    ("cluster_shards", 2), ("slo", "on"),
 ])
 def test_config_accepts_ported(field, value):
     """The query library, the resilient backend, the delivery plane,
-    sessions, the overload governor, interest management and index
-    snapshots are ported: they validate over the cuda index and over
-    the cpu one — but interest, which rides the entity plane, and so the
-    device index, is refused over the cpu index as the JAX package
-    refuses it."""
+    sessions, the overload governor, interest management, index
+    snapshots, the cluster tier and the SLO engine are ported: they
+    validate over the cuda index and over the cpu one — but interest,
+    which rides the entity plane, and so the device index, is refused
+    over the cpu index as the JAX package refuses it."""
     _config(TConfig, **{field: value}).validate()
     cpu = _config(TConfig, entity_sim=False, spatial_backend="cpu",
                   **{field: value})
@@ -471,3 +473,40 @@ def test_default_boots_validate():
     assert server.backend.device == server.entity_plane.device
     assert server.staging is not None  # the cuda index stages
     assert zmq.zmq_version()  # the ZMQ legs above ran on a real libzmq
+
+
+@pytest.mark.parametrize("warmup", ["index", "entities"])
+def test_failed_warmup_fails_the_boot(warmup, monkeypatch):
+    """A deliberate deviation from the JAX server: the port's boot
+    warm-up (the index's tier walk, the entity plane's kernel build and
+    tick ladder) raising fails ``start()``, where the JAX server logs
+    the error and serves with cold caches. A card whose device path
+    does not run must not serve; in a cluster such a shard exits and
+    the supervisor's restart budget takes over."""
+    import worldql_server_tpu.spatial.precompile as j_pre
+    import worldql_server_tpu_torch.spatial.precompile as t_pre
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("injected warm-up failure")
+
+    async def boot(cls):
+        server = _server(cls, precompile_tiers=True)
+        if cls is JConfig:
+            # the JAX server with the same failure: it must still serve
+            # (both legs fail here, so neither jits a tier on the CPU)
+            monkeypatch.setattr(j_pre, "precompile_tiers", boom)
+            monkeypatch.setattr(server.entity_plane, "precompile", boom)
+        elif warmup == "index":
+            monkeypatch.setattr(t_pre, "precompile_tiers", boom)
+        else:
+            monkeypatch.setattr(server.entity_plane, "precompile", boom)
+        try:
+            await server.start()
+        finally:
+            await server.stop()
+        return server
+
+    with pytest.raises(RuntimeError, match="injected warm-up failure"):
+        asyncio.run(asyncio.wait_for(boot(TConfig), 60))
+    jax = asyncio.run(asyncio.wait_for(boot(JConfig), 120))
+    assert jax.precompile_stats is None

@@ -5,11 +5,13 @@ The flag surface is the JAX package's. Ported: the cuda and cpu
 indexes, the entity simulation, the query library, resilience, the
 delivery plane (``--delivery-workers``), sessions (``--session-ttl``),
 the overload governor (``--overload``), interest-managed fan-out
-(``--interest``) and index snapshots (``--index-snapshot``). The
-``sharded`` index, the cluster flags and the SLO engine are not ported
-yet and fail validation with a "not yet ported" config error
-(engine/config.py). The device work runs on the card unless
-``WQL_TORCH_DEVICE=cpu`` asks for the CPU.
+(``--interest``), index snapshots (``--index-snapshot``), the SLO engine
+and incident capsules (``--slo``, ``--incident-dir``) and the cluster
+tier (``--cluster-shards N`` boots the router and N shard servers of
+this package). The ``sharded`` index is not ported yet and fails
+validation with a "not yet ported" config error (engine/config.py).
+The device work runs on the card unless ``WQL_TORCH_DEVICE=cpu`` asks
+for the CPU.
 
 Flag surface mirrors the reference's clap Args (worldql_server/src/
 args.rs:21-129): every flag falls back to a ``WQL_*`` environment
@@ -296,15 +298,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(world-sharded engines with per-shard WALs; "
                         "cross-shard delivery over inter-shard "
                         "shared-memory rings); 0 (default) = the "
-                        "single-process server, byte for byte; not "
-                        "yet ported)")
+                        "single-process server, byte for byte)")
     p.add_argument("--cluster-role", choices=["router", "shard"],
                    dest="cluster_role",
                    help="cluster process role: 'router' (implied by "
                         "--cluster-shards N) or 'shard' (spawned by the "
                         "router-tier supervisor; requires the "
-                        "WQL_CLUSTER_SPEC topology env; not yet "
-                        "ported)")
+                        "WQL_CLUSTER_SPEC topology env)")
     p.add_argument("--autoshard", choices=["off", "on"],
                    dest="cluster_autoshard",
                    help="live resharding: 'on' arms the router-side "
@@ -356,13 +356,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-core delivery floor, WAL fsync p99) with "
                         "fast/slow-window burn-rate alerting — the slo "
                         "gauge, a /healthz block, and GET /debug/slo "
-                        "(default off = no SLO surface at all; not "
-                        "yet ported)")
+                        "(default off = no SLO surface at all)")
     p.add_argument("--slo-file", dest="slo_file",
                    help="JSON objective registry replacing the "
                         "built-in defaults (per-objective targets and "
-                        "burn windows); implies --slo on (not yet "
-                        "ported)")
+                        "burn windows); implies --slo on")
     p.add_argument("--incident-dir", dest="incident_dir",
                    help="write one correlated incident capsule (JSON) "
                         "here on each SLO BURNING transition; bounded "
@@ -518,6 +516,19 @@ def main(argv: list[str] | None = None) -> int:
     if port_error is not None:
         print(f"config error: {port_error}", file=sys.stderr)
         return 1
+
+    if config.cluster_shards > 0:
+        # Router tier: the public listener + the supervised shard
+        # processes. Never constructs a WorldQLServer of its own —
+        # every world lives in exactly one shard.
+        from .cluster import ClusterRuntime
+
+        runtime = ClusterRuntime(config)
+        try:
+            asyncio.run(runtime.run_forever())
+        except KeyboardInterrupt:
+            pass
+        return 0
 
     try:
         server = WorldQLServer(config)

@@ -16,20 +16,22 @@ self-contained).
 Port status (ROADMAP.md): the fields are the JAX package's, so the
 flag surface is the same. The device index is ``cuda``
 (spatial/cuda_backend.py, the port of the JAX package's ``tpu``
-backend); ``tpu`` is refused with a pointer to it. ``validate()``
-rejects every setting whose subsystem the port does not have yet with
-a "not yet ported" error — the ``sharded`` mesh index, the cluster
-tier and the SLO engine. The query library (``query_kinds``, on by
-default as in the JAX package), the resilient backend
-(``resilience``), the delivery plane (``delivery_workers``), sessions
-(``session_ttl``), the overload governor (``overload``), interest
-management (``interest``) and index snapshots (``index_snapshot``) are
-ported, off by default as in the JAX package. As in the JAX package,
+backend); ``tpu`` is refused with a pointer to it, and the ``sharded``
+mesh index, which the port does not have yet, with a "not yet ported"
+error. The query library (``query_kinds``, on by default as in the JAX
+package), the resilient backend (``resilience``), the delivery plane
+(``delivery_workers``), sessions (``session_ttl``), the overload
+governor (``overload``), interest management (``interest``), index
+snapshots (``index_snapshot``), the SLO engine and incident capsules
+(``slo``, ``slo_file``, ``incident_*``) and the cluster tier
+(``cluster_shards``, ``cluster_role`` and live resharding) are ported,
+off by default as in the JAX package. As in the JAX package,
 ``entity_sim`` and ``delta_ticks='on'`` require the device index.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from dataclasses import dataclass, field
@@ -604,7 +606,6 @@ class Config:
             )
         elif self.spatial_backend not in ("cpu", "cuda"):
             errors.append("spatial_backend must be 'cpu' or 'cuda'")
-        errors.extend(self._unported())
         if (
             os.environ.get("WQL_DIST_COORDINATOR")
             and self.spatial_backend != "sharded"
@@ -804,6 +805,13 @@ class Config:
 
         if self.slo not in ("off", "on"):
             errors.append("slo must be 'off' or 'on'")
+        if self.slo_file is not None:
+            try:
+                from ..observability.slo import load_objectives
+
+                load_objectives(self.slo_file)
+            except (OSError, ValueError, json.JSONDecodeError) as exc:
+                errors.append(f"slo_file: {exc}")
         if self.incident_cooldown < 0:
             errors.append("incident_cooldown must be >= 0")
         if self.incident_keep < 1:
@@ -816,19 +824,6 @@ class Config:
 
         if errors:
             raise ValueError("; ".join(errors))
-
-    def _unported(self) -> list[str]:
-        """One "not yet ported" error per setting whose subsystem the
-        port does not have yet (ROADMAP.md queues each)."""
-        unported = []
-        if self.cluster_shards > 0 or self.cluster_role:
-            unported.append("cluster_shards/cluster_role (cluster tier)")
-        if self.slo_enabled:
-            unported.append("slo='on'/slo_file (SLO engine)")
-        return [
-            f"{what} is not yet ported to worldql_server_tpu_torch"
-            for what in unported
-        ]
 
     @property
     def trace_enabled(self) -> bool:

@@ -19,16 +19,19 @@ device as the index with interest-managed fan-out (``--interest on``,
 interest/), the delivery plane's sender workers (``--delivery-workers
 N``, delivery/), session continuity (``--session-ttl``,
 robustness/sessions.py), the overload governor (``--overload on``,
-robustness/overload.py), the ticker, router, transports, durability and
-the flight recorder. ``Config.validate()`` rejects the subsystems that
-are not ported yet (the cluster tier, the SLO engine), so none of their
-wiring exists here.
+robustness/overload.py), the SLO engine and incident capsules
+(``--slo``, observability/), the cluster shard extension
+(``--cluster-role shard``, cluster/shard.py: a shard behind the router
+of ``--cluster-shards N``), the ticker, router, transports, durability
+and the flight recorder. ``Config.validate()`` rejects the ``sharded``
+mesh index, which is not ported yet.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 
 from ..robustness import failpoints
 from ..robustness.supervisor import Supervisor
@@ -307,6 +310,24 @@ class WorldQLServer:
                 # invalidated BEFORE the restore so the next dispatch
                 # re-ships the host authority
                 self.backend.on_rebuild = self.entity_plane.abort_tick
+        # Cluster shard extension (cluster/): remote peer proxies, the
+        # inter-shard ring drain and the control channel to the router
+        # tier. Only with --cluster-role shard (spawned by the router's
+        # supervisor, which provides the WQL_CLUSTER_SPEC topology);
+        # standalone servers never import the cluster package.
+        self.cluster = None
+        if config.cluster_role == "shard":
+            from ..cluster.shard import ClusterShardExtension
+
+            self.cluster = ClusterShardExtension(self)
+            if self.recorder is not None:
+                # graft router.forward/cluster.ring_dwell spans for
+                # drained cross-shard frames under the tick trace at
+                # export time, composed with the delivery plane's
+                # stitcher when both are built
+                self.recorder.stitcher = self.cluster.chain_stitcher(
+                    self.recorder.stitcher
+                )
         self.ticker = None
         self.staging = None
         if config.tick_interval > 0:
@@ -330,6 +351,7 @@ class WorldQLServer:
                 staging=self.staging,
                 entity_plane=self.entity_plane,
                 governor=self.governor,
+                cluster=self.cluster,
                 heatmap=self.heatmap,
             )
         self.precompile_stats: dict | None = None
@@ -367,6 +389,31 @@ class WorldQLServer:
             query_limits=self.query_limits,
             heatmap=self.heatmap,
         )
+        # SLO engine + incident recorder (observability/slo.py,
+        # incidents.py): declared objectives over the series this
+        # registry already records, judged by a supervised slo-eval
+        # task with fast/slow burn windows. Off (default) constructs
+        # nothing — no gauge, no routes, no healthz block.
+        self.slo = None
+        self.incidents = None
+        if config.slo_enabled:
+            from ..observability.slo import SloEngine, load_objectives
+
+            interval, objectives = load_objectives(config.slo_file)
+            self.slo = SloEngine(
+                self.metrics, objectives, eval_interval_s=interval
+            )
+            if config.incident_dir is not None:
+                from ..observability.incidents import IncidentRecorder
+
+                self.incidents = IncidentRecorder(
+                    config.incident_dir,
+                    cooldown_s=config.incident_cooldown,
+                    keep=config.incident_keep,
+                    metrics=self.metrics,
+                )
+                self.incidents.collect = self._collect_incident_body
+                self.slo.on_burning = self._on_slo_burning
         self._register_gauges()
         self._transports: list = []
         self._started = asyncio.Event()
@@ -453,8 +500,18 @@ class WorldQLServer:
         if self.governor is not None:
             # governor state + shed/coalesce/rate-limit accounting
             self.metrics.gauge("overload", self.governor.status)
+        if self.cluster is not None:
+            # shard-side cluster accounting: remote proxies held,
+            # ring send/drop/drain counts, cross-shard frames
+            self.metrics.gauge("cluster_shard", self.cluster.stats)
         if self.recorder is not None:
             self.metrics.gauge("flight_recorder", self.recorder.stats)
+        if self.slo is not None:
+            # per-objective burn state: numeric levels flatten to
+            # wql_slo_<objective> (0 ok / 1 warn / 2 burning) + worst
+            self.metrics.gauge("slo", self.slo.gauge)
+        if self.incidents is not None:
+            self.metrics.gauge("incidents", self.incidents.stats)
         if self.loop_monitor is not None:
             self.metrics.gauge("loop_health", self.loop_monitor.snapshot)
         if self.resilience_status() is not None:
@@ -513,6 +570,46 @@ class WorldQLServer:
         if self.governor is None:
             return None
         return self.governor.status()
+
+    def device_status(self) -> dict | None:
+        """Where the device work runs, for /healthz: the index's device
+        and the entity plane's, with the kNN kernel's launches in this
+        process, in all and by ``[N, K, launches]``. A cluster's shards
+        are separate processes, and this is how each tells which card
+        (or the CPU) serves it. None for a host index without an entity
+        plane."""
+        index = getattr(self.backend, "device", None)
+        if index is None and self.entity_plane is None:
+            return None
+        body = {"index": None if index is None else str(index)}
+        if self.entity_plane is not None:
+            from ..ops.knn import knn_select
+
+            body["entity_plane"] = str(self.entity_plane.device)
+            body["knn_launches"] = knn_select.launches
+            body["knn_shapes"] = [[n, k, c] for (n, k), c in
+                                  sorted(knn_select.shapes.items())]
+        return body
+
+    def slo_status(self) -> dict | None:
+        """Compact burn-state block for /healthz; None with --slo off."""
+        if self.slo is None:
+            return None
+        return self.slo.healthz()
+
+    def _on_slo_burning(self, objective) -> None:
+        """SLO eval hook: an objective just transitioned into BURNING.
+        Hand it to the incident recorder (debounce lives there)."""
+        if self.incidents is not None:
+            self.incidents.trigger(objective, self.slo.status())
+
+    async def _collect_incident_body(self) -> dict:
+        """Capsule body for a standalone/shard process: this process's
+        subsystem sections (the router overrides this with the fleet
+        pull over the shared chunked-dump client)."""
+        from ..observability.incidents import capsule_sections
+
+        return {"pid": os.getpid(), "sections": capsule_sections(self)}
 
     def _delta_status(self) -> dict:
         """Temporal-coherence accounting (the ``delta`` gauge):
@@ -599,6 +696,10 @@ class WorldQLServer:
         if self.sessions is not None:
             # a torn-down peer's token must never resume
             self.sessions.discard(uuid)
+        if self.cluster is not None:
+            # a homed peer's full teardown must reap its remote
+            # proxies cluster-wide (the router re-broadcasts the drop)
+            self.cluster.on_peer_torn_down(uuid)
         self.backend.remove_peer(uuid)
         if self.governor is not None:
             # token bucket bookkeeping stays bounded by live peers
@@ -705,6 +806,13 @@ class WorldQLServer:
         if self.ticker is not None:
             self.ticker.start()
 
+        if self.slo is not None:
+            # SLO sentinel: judges the burn windows every eval tick
+            # after the transports are up (so /metrics and the slo
+            # gauge agree on what it sees). Supervised — a crashed
+            # evaluator restarts and its absence shows in /healthz.
+            self.supervisor.spawn("slo-eval", self.slo.run)
+
         if self.governor is not None and self.ticker is None:
             # immediate-mode servers have no tick clock — a supervised
             # sampler keeps the lag/RSS signals evaluating; with a
@@ -715,6 +823,11 @@ class WorldQLServer:
             self.supervisor.spawn(
                 "restored-peer-sweep", self._sweep_restored_peers
             )
+
+        if self.cluster is not None:
+            # LAST: the ZMQ listener is bound, so announcing ready to
+            # the router can never race a forward into a closed socket
+            await self.cluster.start()
 
         self._started.set()
         logger.info("worldql-server-tpu-torch started")
@@ -898,15 +1011,24 @@ class WorldQLServer:
         for name in (
             "checkpoint", "stale-sweep", "restored-peer-sweep",
             "session-sweep", "loop-monitor", "overload-governor",
+            "slo-eval", "cluster-control", "cluster-drain",
         ):
             handle = self.supervisor.get(name)
             if handle is not None:
                 await handle.stop()
+        if self.incidents is not None:
+            # after slo-eval stops (no new triggers) — let any
+            # in-flight capsule finish writing
+            await self.incidents.drain()
         if self.loop_monitor is not None:
             self.loop_monitor.uninstall()
         for transport in reversed(self._transports):
             await transport.stop()
         self._transports.clear()
+        if self.cluster is not None:
+            # after the ticker drain (its last flush consumed the
+            # final ring records) and transport teardown
+            await self.cluster.stop()
         if self.delivery_plane is not None:
             # after the ticker drain (frames are already in the rings)
             # and transport teardown: workers own their sockets, so

@@ -611,18 +611,23 @@ class TickBatcher:
 
     # endregion
 
-    async def flush(self) -> None:
+    async def flush(self, *, sim: bool = True) -> None:
         """Resolve and deliver everything queued so far. Serialized so a
         size-triggered flush can't interleave with the timer's. In
         pipelined mode any in-flight stage is waited out FIRST, so the
         drained queue delivers after it (stop()'s exactly-once drain
-        keeps cross-tick arrival order)."""
+        keeps cross-tick arrival order). ``sim=False`` runs no
+        simulation tick: a cluster shard's freeze fence owes the queued
+        messages their delivery, not a sim step off the timer's
+        cadence."""
         await self._drain_inflight()
         async with self._flushing:
             batch = self._take_batch()
             plane = self._entity_plane
-            sim_on = plane is not None and plane.active()
+            sim_on = sim and plane is not None and plane.active()
             if not batch and not sim_on:
+                if not sim:
+                    return  # nothing queued, and no tick window
                 if self._cluster is not None:
                     # no local work this window — the inter-shard
                     # rings still owe their drain on the tick clock
@@ -636,7 +641,7 @@ class TickBatcher:
 
             dispatched = not batch
             deliver_task = None
-            sim_handle = self._sim_dispatch(trace)
+            sim_handle = self._sim_dispatch(trace) if sim_on else None
             skip_frames = self._frame_skip(sim_handle)
             try:
                 targets = []

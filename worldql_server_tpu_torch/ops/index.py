@@ -66,9 +66,9 @@ def _signed(u: int) -> int:
     return u - _U64 if u >= 2**63 else u
 
 
-_M1 = _signed(int(MIX_M1))
-_M2 = _signed(int(MIX_M2))
-_PAD = int(PAD_KEY)
+_M1 = _signed(int(MIX_M1))  # wql: allow(jax-host-sync) — a Python int constant, no tensor
+_M2 = _signed(int(MIX_M2))  # wql: allow(jax-host-sync) — a Python int constant, no tensor
+_PAD = int(PAD_KEY)  # wql: allow(jax-host-sync) — a numpy host scalar, no tensor
 
 #: slots per probe-table bucket
 PROBE_E = 8
@@ -472,7 +472,7 @@ def _write_chunk(bufs, chunks, start: int):
     out = []
     for b, c in zip(bufs, chunks):
         c = _h2d(c, b.device)
-        at = max(0, min(int(start), b.shape[0] - c.shape[0]))
+        at = max(0, min(int(start), b.shape[0] - c.shape[0]))  # wql: allow(jax-host-sync) — start is the host's delta cursor
         nb = b.clone()
         nb[at:at + c.shape[0]] = c
         out.append(nb)

@@ -179,9 +179,13 @@ def knn_select(rid: torch.Tensor, peer: torch.Tensor, pos: torch.Tensor,
             f"(n={n}, k={k})"
         )
     knn_select.launches += 1
+    knn_select.shapes[(n, k)] = knn_select.shapes.get((n, k), 0) + 1
     return out
 
 
 #: kernel launches since the last reset (chip_smoke resets it to 0
-#: before driving the server and reads it after)
+#: before driving the server and reads it after), and the same launches
+#: by ``(N, K)``, so a check of the kernel can cover the shapes a path
+#: gave it
 knn_select.launches = 0
+knn_select.shapes = {}

@@ -77,7 +77,7 @@ def device_coord_clamp(x: torch.Tensor, size: int) -> torch.Tensor:
 
     Mirrors the max-corner / sign-symmetric / 0→+size semantics of the
     golden host quantizer (cube_area.rs:23-44)."""
-    size_f = torch.full_like(x, float(size))
+    size_f = torch.full_like(x, float(size))  # wql: allow(jax-host-sync, host-sync-in-sim-tick) — size is the host's cube size
     a = torch.abs(x)
     mult = torch.where(x < 0, -1, 1).to(torch.int64)
     rounded = torch.ceil(a / size_f) * size_f
@@ -198,7 +198,7 @@ def state_from_numpy(position, velocity, world, peer,
     """numpy SoA columns (the JAX package's EntityState as numpy, or the
     plane's host columns) → a port EntityState on ``device`` (copied)."""
     def put(a, dtype):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)  # wql: allow(jax-host-sync, host-sync-in-sim-tick) — host columns going up, not a read back
 
     return EntityState(
         position=put(position, torch.float32),
@@ -212,7 +212,7 @@ def state_to_numpy(state: EntityState) -> tuple:
     """A port EntityState → ``(position, velocity, world, peer)`` numpy
     arrays (independent host copies)."""
     return tuple(
-        t.detach().to("cpu", copy=True).numpy() for t in state
+        t.detach().to("cpu", copy=True).numpy() for t in state  # wql: allow(host-sync-in-sim-tick) — the state's 4 columns; a deliberate read back outside the tick
     )
 
 

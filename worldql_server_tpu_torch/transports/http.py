@@ -148,6 +148,14 @@ class HttpTransport:
             body["slo"] = slo
             if slo["burning"]:
                 body["status"] = "degraded"
+        # Which device serves the index and the entity plane: the port
+        # runs on the card unless asked for the CPU, and a cluster
+        # shard is a process of its own. Absent on a host index without
+        # an entity plane.
+        dev_fn = getattr(self.server, "device_status", None)
+        devices = dev_fn() if dev_fn is not None else None
+        if devices is not None:
+            body["device"] = devices
         # Flight-recorder state (slow-tick count front and center): an
         # operator probing a limping node sees HOW MANY ticks blew the
         # threshold before scraping anything. Absent when tracing is

@@ -178,7 +178,7 @@ class ZmqTransport:
             data = self._flatten(parts, limit)
             if data is not None:
                 unwrapped += await self._absorb_inbound(
-                    cluster, data, datas, ctxs
+                    cluster, data, datas, ctxs, fast
                 )
             while len(datas) < RECV_DRAIN_MAX:
                 try:
@@ -188,7 +188,7 @@ class ZmqTransport:
                 data = self._flatten(parts, limit)
                 if data is not None:
                     unwrapped += await self._absorb_inbound(
-                        cluster, data, datas, ctxs
+                        cluster, data, datas, ctxs, fast
                     )
             if unwrapped:
                 # the fast-path-through-router proof: router-framed
@@ -200,7 +200,7 @@ class ZmqTransport:
                                          ctxs=ctxs)
 
     async def _absorb_inbound(self, cluster, data: bytes, datas: list,
-                              ctxs: list | None) -> int:
+                              ctxs: list | None, fast) -> int:
         """Classify one inbound frame for the columnar batch. Live
         resharding (cluster/resharding) adds two diverts ahead of the
         fast path: freeze FENCE frames ack over control instead of
@@ -208,13 +208,22 @@ class ZmqTransport:
         placement than this shard holds) take the full decode +
         ownership check — a stale entity frame must never reach the
         SoA columns directly, it may belong to a world this shard just
-        lost. Everything else joins the batch with its trace ctx in
-        lockstep. Returns 1 when a live trace ctx was stripped."""
+        lost. Both first hand ``fast`` the frames batched before them,
+        in order: the router exports the frozen world once the fence is
+        acked, so every frame forwarded before the freeze must be
+        applied by then. Everything else joins the batch with its trace
+        ctx in lockstep. Returns 1 when a live trace ctx was stripped."""
         if cluster is None:
             datas.append(data)  # wql: allow(unbounded-ingest) — bounded by RECV_DRAIN_MAX in the caller
             return 0
         trace_id, t_ctx, epoch, data = cluster.unwrap(data)
-        if data[:4] == cluster.FENCE_MAGIC:
+        fence = data[:4] == cluster.FENCE_MAGIC
+        if (fence or cluster.frame_stale(epoch)) and datas:
+            await fast.process_batch(list(datas), self._route_data,
+                                     ctxs=list(ctxs))
+            datas.clear()
+            ctxs.clear()
+        if fence:
             cluster.on_fence(data)
             return 0
         if cluster.frame_stale(epoch):
