@@ -66,9 +66,11 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
    in-memory sinks register 100,000 entities with velocities in 4
    worlds through the router / ``ColumnarIngest`` path, and the ticker
    serves sim ticks at k=32 with every kernel's launch counter reset
-   just before and read just after — three times: at least 3 ticks with
-   every entity moving (full ticks), at least 3 with 1% moving (delta
-   ticks at pow2 sub-tiers), and at least 5 with 1% moving through
+   just before and read just after each run — one boot and join serves
+   at least 3 ticks with 1% moving (delta ticks at pow2 sub-tiers),
+   then, once the other 99% are re-sent with their velocities, at least
+   3 with every entity moving (full ticks); a second boot serves at
+   least 5 with 1% moving through
    ``--interest on --delivery-workers 2``: the 64 peers are adopted by
    the sender workers over socketpairs (the card host has no
    ``websockets``), a reader thread splits the WebSocket
@@ -97,10 +99,19 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
     move printed; the router's ``/healthz``,
     ``/debug/slo`` and ``/metrics`` (strict-parsed) last. K7's launches
     in the shards, in all and by shape, are read off their ``/healthz``;
-11. holds K7 to its plain version, bit for bit, at every ``(N, K)`` the
-    driven paths of 9 and 10 launched it at (warm-up, capacity and
+11. runs the eleven scenarios of the port's adversarial catalog
+    (``worldql_server_tpu_torch/scenarios``) at ``--shape full`` through
+    ``run_scenario``, each on a server of its own over real ZeroMQ: the
+    five on the device index must name cuda for it (and the three with
+    the entity plane, for the plane, with K7 launched), and every check
+    of every scenario must hold; after ``battle_royale``'s churn
+    (compaction threshold 8: folds and delta resorts on the card) the
+    index's device segments must equal its host mirror; each scenario's
+    wall, checks and SLO values are printed;
+12. holds K7 to its plain version, bit for bit, at every ``(N, K)`` the
+    driven paths of 9, 10 and 11 launched it at (warm-up, capacity and
     delta sub-tiers, in this process and in the shards);
-12. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
+13. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
 Every phase raises on failure; nothing is caught. Without a CUDA card,
@@ -440,11 +451,20 @@ def _replay_interest(server, adopted, peers):
 
 
 async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
-                       min_ticks=10, moving=1.0, device=None, extra_args=(),
+                       mixes=((1.0, 10),), device=None, extra_args=(),
                        adopt=False):
-    """The entity-sim server at config 3's width. With ``adopt``, the
-    peers' frames go through the delivery plane's sender workers over
-    socketpairs (``extra_args`` must ask for ``--delivery-workers``)."""
+    """The entity-sim server at config 3's width, serving each
+    ``(moving, min_ticks)`` of ``mixes`` in turn from one boot and one
+    join. The entities register with the first mix's velocities; each
+    later mix re-sends, through the same ingest path, every entity
+    whose velocity changes, at its join position (the movers of one
+    mix stay movers in the next, so the mixes go from fewer movers to
+    more, and a re-sent entity has not moved). K7's launch counts are
+    set to 0 before the boot for the first mix and before the re-send
+    for each later one, and read just after the mix's last tick. With
+    ``adopt``, the peers' frames go through the delivery plane's sender
+    workers over socketpairs (``extra_args`` must ask for
+    ``--delivery-workers``). Returns ``(report, launches)`` a mix."""
     import uuid
 
     from worldql_server_tpu_torch.__main__ import (
@@ -458,6 +478,9 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         Instruction, Message, deserialize_message, serialize_message)
     from worldql_server_tpu_torch.protocol.types import Entity, Vector3
 
+    movings = [m for m, _ in mixes]
+    if movings != sorted(movings) or (adopt and len(mixes) > 1):
+        raise ValueError(f"mixes go from fewer movers to more: {mixes}")
     args = build_parser().parse_args([
         "--entity-sim", "--entity-k", "32", "--entity-max", "131072",
         "--tick-interval", "0.05", "--store-url", "memory://",
@@ -468,8 +491,9 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
                                interval_explicit=True)
     config.validate()
 
-    knn_select.launches = 0  # the main path's run starts here
+    knn_select.launches = 0  # the first mix's run starts here
     knn_select.shapes = {}
+    t_boot = time.perf_counter()
     server = WorldQLServer(config, device=device)
     plane = server.entity_plane
     if (config.spatial_backend != "cuda"
@@ -479,6 +503,7 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
             f"{getattr(server.backend, 'device', 'host')}, plane on "
             f"{plane.device}")
     await server.start()
+    boot_s = time.perf_counter() - t_boot
     sunk = {"frames": 0, "bytes": 0}
     sample: list[bytes] = []
 
@@ -509,161 +534,199 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
 
     rng = np.random.default_rng(SEED)
     pos = rng.uniform(-120, 120, (n_entities, 3))
-    vel = rng.uniform(-20, 20, (n_entities, 3)).astype(np.float32)
-    vel[rng.random(n_entities) >= moving] = 0.0
+    vel_all = rng.uniform(-20, 20, (n_entities, 3)).astype(np.float32)
+    draw = rng.random(n_entities)
     worlds = [f"world{w}" for w in range(n_worlds)]
-    datas = []
-    for pi, p in enumerate(peers):
-        for wi, w in enumerate(worlds):
-            idx = np.arange(pi * n_worlds + wi, n_entities,
-                            n_peers * n_worlds)
-            for c0 in range(0, idx.size, 1024):
-                chunk = idx[c0:c0 + 1024]
-                datas.append(serialize_message(Message(
-                    instruction=Instruction.LOCAL_MESSAGE,
-                    sender_uuid=p, world_name=w,
-                    entities=[Entity(
-                        uuid=uuid.UUID(int=(1 << 100) + int(i)),
-                        position=Vector3(*map(float, pos[i])),
-                        world_name=w, flex=vel[i].tobytes(),
-                    ) for i in chunk],
-                )))
+
+    def messages(vel, which):
+        """The entities of ``which`` at their join positions with
+        velocities ``vel``, each peer's in each world in chunks of
+        1,024."""
+        datas = []
+        for pi, p in enumerate(peers):
+            for wi, w in enumerate(worlds):
+                idx = np.arange(pi * n_worlds + wi, n_entities,
+                                n_peers * n_worlds)
+                idx = idx[which[idx]]
+                for c0 in range(0, idx.size, 1024):
+                    chunk = idx[c0:c0 + 1024]
+                    datas.append(serialize_message(Message(
+                        instruction=Instruction.LOCAL_MESSAGE,
+                        sender_uuid=p, world_name=w,
+                        entities=[Entity(
+                            uuid=uuid.UUID(int=(1 << 100) + int(i)),
+                            position=Vector3(*map(float, pos[i])),
+                            world_name=w, flex=vel[i].tobytes(),
+                        ) for i in chunk],
+                    )))
+        return datas
 
     async def slow_route(data):
         await server.router.handle_message(deserialize_message(data))
 
-    t0 = time.perf_counter()
-    for c0 in range(0, len(datas), 64):
-        await server.entity_ingest.process_batch(datas[c0:c0 + 64],
-                                                 slow_route)
-        await asyncio.sleep(0)
-    ingest_s = time.perf_counter() - t0
-    if plane.entity_count != n_entities:
-        raise AssertionError(
-            f"{plane.entity_count} of {n_entities} entities registered")
+    async def ingest(datas):
+        t0 = time.perf_counter()
+        for c0 in range(0, len(datas), 64):
+            await server.entity_ingest.process_batch(datas[c0:c0 + 64],
+                                                     slow_route)
+            await asyncio.sleep(0)
+        return time.perf_counter() - t0
 
-    # serve: sample each applied tick's stage times until min_ticks
-    start_applied = plane.applied_ticks
-    start_disp = plane.dispatches
-    start_replay = plane.delta_sim_ticks
-    samples = []
-    last = plane.applied_ticks
-    frames_before = sunk["frames"]
-    sample.clear()  # drop the peers' PeerConnect notices: frames only
-    deadline = time.perf_counter() + 400
-    while plane.applied_ticks - start_applied < min_ticks:
-        if time.perf_counter() > deadline:
-            raise AssertionError("server did not serve the ticks in time")
-        await asyncio.sleep(0.002)
-        if plane.applied_ticks != last:
-            last = plane.applied_ticks
-            samples.append({
-                "tick_ms": server.ticker.last_tick_ms,
-                "integrate_ms": plane.last_integrate_ms,
-                "collect_ms": plane.last_knn_ms,
-                "apply_ms": plane.last_apply_ms,
-                "frames": plane.frames,
-                # the wire bytes of the last tick whose delivery settled
-                # (the ticker's per-flush gauge)
-                "bytes": server.metrics.gauge_value(
-                    "delivery.bytes_per_tick"),
-                "delta_ratio": (server.interest.stats()["delta_ratio"]
-                                if server.interest is not None else None),
-            })
-    delivery = server.delivery_status()
-    interest = (server.interest.stats() if server.interest is not None
-                else None)
-    await server.stop()
-    launches = knn_select.launches  # read just after the main path
-    shapes = [[n, k, c] for (n, k), c in sorted(knn_select.shapes.items())]
-
-    stats = plane.stats()
-    ticks = plane.applied_ticks - start_applied
-    dispatched = plane.dispatches - start_disp
-    delta_ticks = plane.delta_sim_ticks - start_replay
-    if stats["scatter_fallbacks"] != 0:
-        raise AssertionError(f"scatter fell back: {stats}")
-    if stats["dropped_ticks"] != 0:
-        raise AssertionError(f"dropped ticks: {stats}")
-    replay = None
-    if adopted is not None:
-        # the workers flushed their rings at the stop and closed their
-        # ends: every frame has reached its reader
-        adopted.join(300)
-        if delivery["ring_full_drops"] or delivery["alive"] != \
-                config.delivery_workers or delivery["peers"] != n_peers:
-            raise AssertionError(f"delivery plane: {delivery}")
-        sample = [f for p in peers for f in adopted.frames[p][:4]]
-        served = sum(len(adopted.frames[p]) for p in peers)
-        if server.interest is not None:
-            replay = _replay_interest(server, adopted, peers)
-    else:
-        served = sunk["frames"] - frames_before
-    if served <= 0:
-        raise AssertionError("no frame reached the sinks")
-    # what came out is right in form: decoded neighbour frames of
-    # registered entities, at finite positions inside the world bounds
     registered = {(1 << 100) + i for i in range(n_entities)}
-    frames_seen = 0
-    for data in sample:
-        msg = deserialize_message(data)
-        if not msg.parameter or not msg.parameter.startswith(
-                "entity.frame"):
-            continue  # PeerConnect notices of the peer inserts
-        frames_seen += 1
-        interest_frame = msg.parameter != "entity.frame"
-        for ent in msg.entities[:4]:
-            p = (ent.position.x, ent.position.y, ent.position.z)
-            if (ent.uuid.int not in registered or not all(np.isfinite(p))
-                    or max(map(abs, p)) > config.entity_bounds
-                    or (not interest_frame and msg.sender_uuid not in peers)):
-                raise AssertionError(f"malformed neighbour frame: {msg}")
-    if frames_seen == 0:
-        raise AssertionError("no entity.frame among the sampled frames")
-    frames_per_tick = [b["frames"] - a["frames"]
-                       for a, b in zip(samples, samples[1:])]
-    bytes_per_tick = [s["bytes"] for s in samples[1:]]
+    out = []
+    vel_prev = None
+    for mi, (moving, min_ticks) in enumerate(mixes):
+        vel = np.where((draw < moving)[:, None], vel_all,
+                       np.float32(0.0)).astype(np.float32)
+        if vel_prev is None:
+            ingest_s = await ingest(messages(vel, np.ones(n_entities, bool)))
+        else:
+            knn_select.launches = 0  # this mix's run starts here
+            knn_select.shapes = {}
+            ingest_s = await ingest(messages(
+                vel, (vel != vel_prev).any(axis=1)))
+        vel_prev = vel
+        if plane.entity_count != n_entities:
+            raise AssertionError(
+                f"{plane.entity_count} of {n_entities} entities registered")
 
-    def pct(key, q):
-        vals = sorted(s[key] for s in samples[1:])
-        return vals[min(len(vals) - 1, int(q * len(vals)))]
+        # serve: sample each applied tick's stage times until min_ticks
+        t_serve = time.perf_counter()
+        start_applied = plane.applied_ticks
+        start_disp = plane.dispatches
+        start_replay = plane.delta_sim_ticks
+        start_stats = plane.stats()
+        samples = []
+        last = plane.applied_ticks
+        frames_before = sunk["frames"]
+        sample.clear()  # drop the peers' PeerConnect notices: frames only
+        deadline = time.perf_counter() + 400
+        while plane.applied_ticks - start_applied < min_ticks:
+            if time.perf_counter() > deadline:
+                raise AssertionError("server did not serve the ticks in time")
+            await asyncio.sleep(0.002)
+            if plane.applied_ticks != last:
+                last = plane.applied_ticks
+                samples.append({
+                    "tick_ms": server.ticker.last_tick_ms,
+                    "integrate_ms": plane.last_integrate_ms,
+                    "collect_ms": plane.last_knn_ms,
+                    "apply_ms": plane.last_apply_ms,
+                    "frames": plane.frames,
+                    # the wire bytes of the last tick whose delivery
+                    # settled (the ticker's per-flush gauge)
+                    "bytes": server.metrics.gauge_value(
+                        "delivery.bytes_per_tick"),
+                    "delta_ratio": (server.interest.stats()["delta_ratio"]
+                                    if server.interest is not None
+                                    else None),
+                })
+        serve_s = time.perf_counter() - t_serve
+        delivery = server.delivery_status()
+        interest = (server.interest.stats() if server.interest is not None
+                    else None)
+        last_mix = mi == len(mixes) - 1
+        stop_s = None
+        if last_mix:
+            t_stop = time.perf_counter()
+            await server.stop()
+            stop_s = time.perf_counter() - t_stop
+        launches = knn_select.launches  # read just after the mix's run
+        shapes = [[n, k, c] for (n, k), c in
+                  sorted(knn_select.shapes.items())]
 
-    report = {
-        "entities": plane.entity_count, "peers": n_peers,
-        "worlds": n_worlds, "k": plane.k, "capacity": stats["capacity"],
-        "ingest_s": ingest_s, "ticks": ticks, "dispatched": dispatched,
-        "delta_sim_ticks": delta_ticks, "full_sim_ticks":
-            stats["full_sim_ticks"], "knn_launches": launches,
-        "knn_shapes": shapes,
-        "tick_ms_p50": pct("tick_ms", 0.5),
-        "tick_ms_p99": pct("tick_ms", 0.99),
-        "integrate_ms_p50": pct("integrate_ms", 0.5),
-        "collect_ms_p50": pct("collect_ms", 0.5),
-        "apply_ms_p50": pct("apply_ms", 0.5),
-        "frames_per_tick": statistics.median(frames_per_tick)
-        if frames_per_tick else 0,
-        "frames_to_sinks": served,
-        "bytes_to_sinks": (adopted.bytes if adopted is not None
-                           else sunk["bytes"]),
-        "bytes_per_tick": bytes_per_tick,
-        "bytes_per_tick_p50": statistics.median(bytes_per_tick)
-        if bytes_per_tick else 0,
-        "delta_ratio": [s["delta_ratio"] for s in samples],
-        "tick_ms": [s["tick_ms"] for s in samples],
-        "apply_ms": [s["apply_ms"] for s in samples],
-        "interest": interest, "delivery": delivery, "replay": replay,
-        "ring_bytes": config.delivery_ring_bytes
-        if config.delivery_workers else None,
-        "scatter_fallbacks": stats["scatter_fallbacks"],
-        "dropped_ticks": stats["dropped_ticks"],
-        "warmup": server.precompile_stats,
-        "device": str(plane.device),
-        "index": {k: server.backend.device_stats()[k] for k in (
-            "subscriptions", "base_rows", "delta_rows", "compactions",
-            "delta_sync_sorts", "delta_sync_scatters")},
-        "moving": moving, "frames_checked": frames_seen,
-    }
-    return report, launches
+        stats = plane.stats()
+        ticks = plane.applied_ticks - start_applied
+        dispatched = plane.dispatches - start_disp
+        delta_ticks = plane.delta_sim_ticks - start_replay
+        if stats["scatter_fallbacks"] != 0:
+            raise AssertionError(f"scatter fell back: {stats}")
+        if stats["dropped_ticks"] != 0:
+            raise AssertionError(f"dropped ticks: {stats}")
+        replay = None
+        if adopted is not None:
+            # the workers flushed their rings at the stop and closed
+            # their ends: every frame has reached its reader
+            adopted.join(300)
+            if delivery["ring_full_drops"] or delivery["alive"] != \
+                    config.delivery_workers or delivery["peers"] != n_peers:
+                raise AssertionError(f"delivery plane: {delivery}")
+            sample = [f for p in peers for f in adopted.frames[p][:4]]
+            served = sum(len(adopted.frames[p]) for p in peers)
+            if server.interest is not None:
+                replay = _replay_interest(server, adopted, peers)
+        else:
+            served = sunk["frames"] - frames_before
+        if served <= 0:
+            raise AssertionError("no frame reached the sinks")
+        # what came out is right in form: decoded neighbour frames of
+        # registered entities, at finite positions inside the world bounds
+        frames_seen = 0
+        for data in sample:
+            msg = deserialize_message(data)
+            if not msg.parameter or not msg.parameter.startswith(
+                    "entity.frame"):
+                continue  # PeerConnect notices of the peer inserts
+            frames_seen += 1
+            interest_frame = msg.parameter != "entity.frame"
+            for ent in msg.entities[:4]:
+                p = (ent.position.x, ent.position.y, ent.position.z)
+                if (ent.uuid.int not in registered
+                        or not all(np.isfinite(p))
+                        or max(map(abs, p)) > config.entity_bounds
+                        or (not interest_frame
+                            and msg.sender_uuid not in peers)):
+                    raise AssertionError(f"malformed neighbour frame: {msg}")
+        if frames_seen == 0:
+            raise AssertionError("no entity.frame among the sampled frames")
+        frames_per_tick = [b["frames"] - a["frames"]
+                           for a, b in zip(samples, samples[1:])]
+        bytes_per_tick = [s["bytes"] for s in samples[1:]]
+
+        def pct(key, q):
+            vals = sorted(s[key] for s in samples[1:])
+            return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+        report = {
+            "entities": plane.entity_count, "peers": n_peers,
+            "worlds": n_worlds, "k": plane.k, "capacity": stats["capacity"],
+            "mix": mi, "boot_s": boot_s if mi == 0 else None,
+            "ingest_s": ingest_s, "serve_s": serve_s, "stop_s": stop_s,
+            "ticks": ticks, "dispatched": dispatched,
+            "delta_sim_ticks": delta_ticks, "full_sim_ticks":
+                stats["full_sim_ticks"] - start_stats["full_sim_ticks"],
+            "knn_launches": launches,
+            "knn_shapes": shapes,
+            "tick_ms_p50": pct("tick_ms", 0.5),
+            "tick_ms_p99": pct("tick_ms", 0.99),
+            "integrate_ms_p50": pct("integrate_ms", 0.5),
+            "collect_ms_p50": pct("collect_ms", 0.5),
+            "apply_ms_p50": pct("apply_ms", 0.5),
+            "frames_per_tick": statistics.median(frames_per_tick)
+            if frames_per_tick else 0,
+            "frames_to_sinks": served,
+            "bytes_to_sinks": (adopted.bytes if adopted is not None
+                               else sunk["bytes"]),
+            "bytes_per_tick": bytes_per_tick,
+            "bytes_per_tick_p50": statistics.median(bytes_per_tick)
+            if bytes_per_tick else 0,
+            "delta_ratio": [s["delta_ratio"] for s in samples],
+            "tick_ms": [s["tick_ms"] for s in samples],
+            "apply_ms": [s["apply_ms"] for s in samples],
+            "interest": interest, "delivery": delivery, "replay": replay,
+            "ring_bytes": config.delivery_ring_bytes
+            if config.delivery_workers else None,
+            "scatter_fallbacks": stats["scatter_fallbacks"],
+            "dropped_ticks": stats["dropped_ticks"],
+            "warmup": server.precompile_stats,
+            "device": str(plane.device),
+            "index": {k: server.backend.device_stats()[k] for k in (
+                "subscriptions", "base_rows", "delta_rows", "compactions",
+                "delta_sync_sorts", "delta_sync_scatters")},
+            "moving": moving, "frames_checked": frames_seen,
+        }
+        out.append((report, launches))
+    return out
 
 
 def _ms_stats(vals):
@@ -1549,19 +1612,19 @@ def interest_ring_bytes(want=64 << 20):
 
 @phase("server on the card")
 def phase_server(torch):
-    # 3 + 3 served ticks (10 + 5 before the index phases took the room,
-    # 5 + 4 before the interest leg did, 4 + 4 before the cluster leg)
-    report, launches = asyncio.run(
-        drive_server(torch, moving=1.0, min_ticks=3))
+    # one boot and join serves both interest-off mixes, 3 + 3 ticks —
+    # 1% moving (delta ticks at pow2 sub-tiers), then every entity
+    # moving (full ticks) — to leave the scenarios phase room in the
+    # script's time limit
+    (idle, idle_launches), (report, launches) = asyncio.run(
+        drive_server(torch, mixes=((0.01, 3), (1.0, 3))))
     print("server", json.dumps(report), flush=True)
-    idle, idle_launches = asyncio.run(
-        drive_server(torch, moving=0.01, min_ticks=3))
     print("server", json.dumps(idle), flush=True)
     # interest-managed fan-out through two sender workers, at the same
     # shape and the same 1% movers: the keyframe tick, then >= 4 ticks
     ring = interest_ring_bytes()
-    lean, lean_launches = asyncio.run(drive_server(
-        torch, moving=0.01, min_ticks=5, adopt=True, extra_args=(
+    ((lean, lean_launches),) = asyncio.run(drive_server(
+        torch, mixes=((0.01, 5),), adopt=True, extra_args=(
             "--interest", "on", "--delivery-workers", "2",
             "--delivery-ring-bytes", str(ring))))
     print("server interest", json.dumps(lean), flush=True)
@@ -1587,6 +1650,10 @@ def phase_server(torch):
           f"delta_ratio {lean['delta_ratio']}", flush=True)
     print(f"knn launches: {launches} (all moving), {idle_launches} "
           f"(1% moving), {lean_launches} (interest + delivery workers)")
+    print("server seconds (boot, ingest, serve, stop): " + json.dumps({
+        name: [rep[k] for k in ("boot_s", "ingest_s", "serve_s", "stop_s")]
+        for name, rep in (("1% moving", idle), ("all moving", report),
+                          ("interest", lean))}))
     shapes = {"entity_sim": report["knn_shapes"],
               "entity_sim_1pct": idle["knn_shapes"],
               "entity_sim_interest_delivery": lean["knn_shapes"]}
@@ -1693,6 +1760,129 @@ def phase_cluster(torch):
     return report
 
 
+def index_matches_host(backend):
+    """The cuda index's device segments against its host mirror, once
+    the compaction in flight is swapped in and the host's changes are
+    flushed: the base row for row (keys, second keys and peers, a
+    tombstone a peer of -1 on both sides), the delta's live ``(key,
+    peer)`` rows as a multiset (the device holds them sorted by key).
+    Returns the live rows compared a segment; raises on a difference."""
+    from worldql_server_tpu_torch.spatial.cuda_backend import PAD_KEY
+
+    backend.wait_compaction()
+    backend.flush()
+    rows = {"base": 0, "delta": 0, "compactions": backend.compactions}
+    if backend._base_bundle is not None:
+        dev = backend._base_bundle["dev"]
+        for i, (want, what) in enumerate(((backend._bk, "keys"),
+                                          (backend._bk2, "second keys"),
+                                          (backend._bp, "peers"))):
+            got = dev[i].cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"device base {what} != host mirror")
+        rows["base"] = int((backend._bp >= 0).sum())
+    if backend._delta_bundle is not None:
+        dev = backend._delta_bundle["dev"]
+        dk, dp = dev[0].cpu().numpy(), dev[2].cpu().numpy()
+        live = (dp >= 0) & (dk != int(PAD_KEY))
+        got = sorted(zip(dk[live].tolist(), dp[live].tolist()))
+        n = backend._dn
+        hk, hp = backend._dk[:n], backend._dp[:n]
+        want = sorted(zip(hk[hp >= 0].tolist(), hp[hp >= 0].tolist()))
+        if got != want:
+            raise AssertionError(
+                f"device delta ({len(got)} live rows) != host mirror "
+                f"({len(want)})")
+        rows["delta"] = len(want)
+    return rows
+
+
+#: the catalog scenarios whose server runs on the device index (the
+#: other six serve from the host index or spawn host-index shards); the
+#: first three run the entity plane, whose ticks launch K7
+DEVICE_SCENARIOS = ("battle_royale", "reconnect_storm", "sniper_scope",
+                    "projectile_storm", "bandwidth_cap")
+ENTITY_SCENARIOS = ("battle_royale", "reconnect_storm", "bandwidth_cap")
+
+
+@phase("scenarios at full shape")
+def phase_scenarios(torch):
+    """Every scenario of the port's catalog, in its order, through
+    ``run_scenario(name, shape="full")`` — the ``ci_smoke = False`` ones
+    by name like the rest: a real server (or the router tier and its
+    shard processes) over real ZeroMQ, each scenario's survival and SLO
+    checks evaluated by the catalog itself. K7's counts are set to 0
+    just before the first scenario and read just after the last. A
+    scenario that does not survive, or any check that fails, fails the
+    phase after all eleven have run and printed."""
+    from worldql_server_tpu_torch.ops.knn import knn_select
+    from worldql_server_tpu_torch.scenarios import CATALOG, run_scenario
+
+    royale = CATALOG["battle_royale"]
+    folded = {}
+
+    class HeldToTheMirror(royale):
+        """battle_royale (its compaction threshold of 8 runs the
+        base+delta fold, K5 and the delta resort every few ticks), the
+        index's device segments held to the host mirror after the
+        drive."""
+
+        def checks(self, ctx, slo):
+            folded.update(index_matches_host(ctx.server.backend))
+            return super().checks(ctx, slo)
+
+    torch.cuda.empty_cache()  # the cluster scenarios' shards start too
+    failed = []
+    reports = {}
+    knn_select.launches = 0  # the scenarios' run starts here
+    knn_select.shapes = {}
+    for name in list(CATALOG):
+        before = knn_select.launches
+        if name == "battle_royale":
+            CATALOG[name] = HeldToTheMirror
+        try:
+            report = run_scenario(name, shape="full")
+        finally:
+            CATALOG["battle_royale"] = royale
+        launched = knn_select.launches - before
+        reports[name] = report
+        dev = report["device"] or {}
+        line = {
+            "wall_s": report["wall_s"], "survived": report["survived"],
+            "error": report["error"],
+            "checks": [[c["name"], c["value"], c["limit"]] + (
+                [] if c["ok"] else ["FAIL"]) for c in report["checks"]],
+            "slo": report["slo"], "index": dev.get("index"),
+            "entity_plane": dev.get("entity_plane"), "knn_launches": launched,
+        }
+        print(f"scenario {name}: " + json.dumps(line, default=str),
+              flush=True)
+        if name in DEVICE_SCENARIOS and dev.get("index") != "cuda":
+            failed.append(f"{name}: index on {dev.get('index')}")
+        if name in ENTITY_SCENARIOS and (
+                dev.get("entity_plane") != "cuda" or launched == 0):
+            failed.append(f"{name}: entity plane on "
+                          f"{dev.get('entity_plane')}, {launched} K7 launches")
+        if not report["survived"] or report["checks_failed"]:
+            failed.append(f"{name}: " + ", ".join(
+                c["name"] for c in report["checks"] if not c["ok"]))
+    if not folded.get("compactions"):
+        failed.append(f"battle_royale: no fold held to the mirror {folded}")
+    print("battle_royale: device index == host mirror after the drive "
+          f"(live rows base {folded.get('base')}, delta "
+          f"{folded.get('delta')}; {folded.get('compactions')} "
+          "compactions)", flush=True)
+    launches = knn_select.launches  # read just after the last scenario
+    shapes = [[n, k, c] for (n, k), c in sorted(knn_select.shapes.items())]
+    print(f"scenarios: {len(reports)} run, walls "
+          + json.dumps({n: r["wall_s"] for n, r in reports.items()})
+          + f"; knn launches {launches} at [N, K, count] "
+          + json.dumps(shapes), flush=True)
+    if failed:
+        raise AssertionError(f"scenarios failed at full shape: {failed}")
+    return launches, shapes
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "worldql_server_tpu_torch")):
         print("chip_smoke: worldql_server_tpu_torch/ not found beside this "
@@ -1728,9 +1918,11 @@ def main() -> int:
     report, launches, lean_launches, shapes = phase_server(torch)
     cluster = phase_cluster(torch)
     cluster_launches = sum(s["knn_launches"] for s in cluster["shards"])
+    scenario_launches, scenario_shapes = phase_scenarios(torch)
     path_rows = phase_knn_paths(torch, rates, {
         **shapes, **{f"cluster_shard{i}": s["knn_shapes"]
-                     for i, s in enumerate(cluster["shards"])}})
+                     for i, s in enumerate(cluster["shards"])},
+        "scenarios": scenario_shapes})
 
     main_row = knn_rows[0]  # N=131,072, K=32: the server phase's shape
     kernels = {"kernels": [{
@@ -1743,11 +1935,13 @@ def main() -> int:
         # interest + delivery-workers server; the cluster's shards are
         # processes of their own, so theirs is each shard's count
         # (/healthz) after the last tick less its count before the peers
-        # registered
-        "launches": launches + lean_launches + cluster_launches,
+        # registered; the scenarios' count spans the eleven scenarios
+        "launches": (launches + lean_launches + cluster_launches
+                     + scenario_launches),
         "launches_by_path": {"entity_sim": launches,
                              "entity_sim_interest_delivery": lean_launches,
-                             "cluster": cluster_launches},
+                             "cluster": cluster_launches,
+                             "scenarios": scenario_launches},
         "max_abs_err": max(r["max_abs_err"] for r in knn_rows + path_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

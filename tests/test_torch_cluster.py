@@ -32,8 +32,8 @@
     frames cross the inter-shard ring after the flip with none
     dropped.
 * The reference's resharding faults that the port's copies fix are
-  pinned as invariants checked on both packages (``_pin``), and the
-  port's fence flush is held to run no sim tick.
+  pinned as invariants checked on both packages (``torch_twin.pin``),
+  and the port's fence flush is held to run no sim tick.
 
 Tolerance: exact.
 """
@@ -47,7 +47,7 @@ import pytest
 import tests.test_cluster as ref_cluster
 import tests.test_cluster_observability as ref_obs
 import tests.test_resharding as ref_reshard
-from tests.torch_twin import call, case_id, cases, port_module
+from tests.torch_twin import call, case_id, cases, pin, port_module
 from worldql_server_tpu_torch.robustness import failpoints as t_failpoints
 from worldql_server_tpu_torch.tools.cluster_drive import drive_cluster
 
@@ -131,19 +131,6 @@ def test_port_live_reshard_moves_an_entity_world():
     assert [r["dropped"] for r in large["ring"]] == [0, 0]
 
 
-def _pin(on_port: bool, on_reference: bool, invariant: str) -> None:
-    """One invariant of the resharding protocol, checked on both
-    packages: the port holds it; the reference is known not to (its
-    fault, which the port's copy fixes as a deliberate deviation listed
-    in ROADMAP Queue C). A reference that comes to hold it fails here
-    with a message that says so, so the fix is reported and the
-    deviation can go, rather than read as a regression of the port."""
-    assert on_port, f"the port breaks: {invariant}"
-    assert not on_reference, (
-        f"the JAX package now holds '{invariant}': its fault is fixed, "
-        "so the port's deviation (ROADMAP Queue C) can go")
-
-
 def _control_datagrams_kept(ext_cls, n=6):
     """Run a shard's control loop on one end of a socket pair; send
     ``n`` datagrams, each followed by a tick that holds the event loop
@@ -198,7 +185,7 @@ def test_control_loop_keeps_datagrams_through_long_ticks():
         ClusterShardExtension as TExt)
 
     every = list(range(6))
-    _pin(_control_datagrams_kept(TExt) == every,
+    pin(_control_datagrams_kept(TExt) == every,
          _control_datagrams_kept(JExt) == every,
          "the control loop handles every datagram through long ticks")
 
@@ -253,7 +240,7 @@ def test_fence_is_acked_after_the_frames_before_it():
     # the batch ahead of the fence handed on, then the ack; the frame
     # after the fence waits for the next batch
     want = ([("batch", [b"a", b"b"]), "fence ack"], [b"c"])
-    _pin(_fence_order(TZmq, with_fast=True) == want,
+    pin(_fence_order(TZmq, with_fast=True) == want,
          # the reference's classifier takes no fast path to hand on to
          _fence_order(JZmq, with_fast=False) == want,
          "a fence is acked after the frames batched ahead of it")
@@ -296,7 +283,7 @@ def test_chunk_stream_waits_out_a_busy_target(monkeypatch):
     import worldql_server_tpu_torch.cluster.resharding.migration as t_mig
 
     every = [{"seq": 0}, {"seq": 1}, {"seq": 2}]
-    _pin(_chunks_streamed(t_mig, monkeypatch) == every,
+    pin(_chunks_streamed(t_mig, monkeypatch) == every,
          _chunks_streamed(j_mig, monkeypatch) == every,
          "the capsule stream waits out a busy target")
 
@@ -346,7 +333,7 @@ def test_fence_ack_follows_a_ticker_flush():
         ClusterShardExtension as TExt)
 
     want = ["ticker flush, no sim", "fence_ack"]
-    _pin(_fence_events(TExt) == want, _fence_events(JExt) == want,
+    pin(_fence_events(TExt) == want, _fence_events(JExt) == want,
          "a fence is acked after the ticker's queue is delivered")
 
 

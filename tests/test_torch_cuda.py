@@ -8,7 +8,8 @@ the card against the port's ``CpuSpatialBackend`` under churn — and the
 query library: its stencil kernels (K10, K11) on the card against the
 CPU, and a mixed kind batch through ``CudaSpatialBackend`` on the card
 against the cpu index's oracles — and a cluster of two entity-sim shard
-processes on the card with a live move of a world between them.
+processes on the card with a live move of a world between them, and the
+``battle_royale`` scenario on the card.
 
 Every test carries the ``cuda`` marker and skips (with a reason) on a
 host without a card; whether there is one is decided inside each test.
@@ -475,3 +476,20 @@ def test_cluster_of_entity_sim_shards_on_card(monkeypatch):
         assert {k for _, k, _ in shard["knn_shapes"]} == {8}
     mig = report["migration"]
     assert mig["imported"]["entities"] == mig["exported"]["entities"] == 500
+
+
+def test_battle_royale_scenario_on_card(monkeypatch):
+    """The scenario library's ``battle_royale`` at smoke shape on the
+    card: every check green, the index and the entity plane on cuda,
+    and the sim ticks launch the kNN kernel."""
+    _need_card()
+    from worldql_server_tpu_torch.scenarios import run_scenario
+
+    monkeypatch.delenv("WQL_TORCH_DEVICE", raising=False)  # the card
+    knn_select.launches = 0
+    report = run_scenario("battle_royale", shape="smoke")
+    failed = [c["name"] for c in report["checks"] if not c["ok"]]
+    assert not failed, (failed, report["error"], report["slo"])
+    assert report["device"]["index"].startswith("cuda")
+    assert report["device"]["entity_plane"].startswith("cuda")
+    assert knn_select.launches > 0

@@ -92,6 +92,10 @@ def test_port_imports_with_jax_and_the_jax_package_poisoned():
         "import worldql_server_tpu_torch.cluster.federation\n"
         "import worldql_server_tpu_torch.cluster.tracectx\n"
         "import worldql_server_tpu_torch.cluster.resharding\n"
+        "import worldql_server_tpu_torch.scenarios\n"
+        "import worldql_server_tpu_torch.scenarios.__main__\n"
+        "from worldql_server_tpu_torch.scenarios import CATALOG\n"
+        "assert len(CATALOG) == 11\n"
         "print('ok')\n"
     )
     env = dict(os.environ, WQL_TORCH_DEVICE="cpu")

@@ -2,15 +2,15 @@
 
 ``port_module(ref)`` executes the source of the JAX package's test
 module ``ref`` again, with every import of ``worldql_server_tpu`` pointed
-at the module of the same path in ``worldql_server_tpu_torch``. The
-bodies are the reference's, line for line, so each case holds the port
-to exactly what it holds the JAX package to. Test clients
-(``worldql_server_tpu.scenarios``, which the port does not have yet)
-stay the JAX package's: they only speak the wire protocol.
+at the module of the same path in ``worldql_server_tpu_torch`` (the
+scenario clients of ``scenarios/client.py`` too). The bodies are the
+reference's, line for line, so each case holds the port to exactly
+what it holds the JAX package to.
 
 ``cases(ref, names)`` expands the named cases with their own
 ``parametrize`` values, and ``call(fn, params, request)`` runs one with
-the fixtures its signature asks for.
+the fixtures its signature asks for. ``pin`` checks, on both packages,
+an invariant that the port holds and the reference is known to break.
 """
 
 from __future__ import annotations
@@ -19,10 +19,6 @@ import inspect
 import re
 import sys
 import types
-
-#: client modules the port has no counterpart of yet
-KEEP = ("worldql_server_tpu.scenarios",)
-
 
 def port_module(ref, replace=()):
     """A module holding ``ref``'s functions, bound to the port. Each
@@ -34,11 +30,6 @@ def port_module(ref, replace=()):
         assert old in src, old
         src = src.replace(old, new)
     src = re.sub(r"\bworldql_server_tpu\b", "worldql_server_tpu_torch", src)
-    for keep in KEEP:
-        src = src.replace(
-            keep.replace("worldql_server_tpu", "worldql_server_tpu_torch", 1),
-            keep,
-        )
     name = ref.__name__ + "_on_port"
     mod = types.ModuleType(name)
     mod.__file__ = ref.__file__
@@ -83,3 +74,16 @@ def call(fn, params, request):
         if arg not in kwargs:
             kwargs[arg] = request.getfixturevalue(arg)
     return fn(**kwargs)
+
+
+def pin(on_port: bool, on_reference: bool, invariant: str) -> None:
+    """An invariant checked on both packages: the port holds it; the
+    reference is known not to (its fault, which the port's copy fixes
+    as a deliberate deviation listed in ROADMAP Queue C). A reference
+    that comes to hold it fails here with a message that says so, so
+    the fix is reported and the deviation can go, rather than read as a
+    regression of the port."""
+    assert on_port, f"the port breaks: {invariant}"
+    assert not on_reference, (
+        f"the JAX package now holds '{invariant}': its fault is fixed, "
+        "so the port's deviation (ROADMAP Queue C) can go")
