@@ -5,8 +5,9 @@ Run from the repository root on a host with one NVIDIA card:
 
     python3 chip_smoke.py
 
-The port builds ``native/libwqlcodec.so`` with ``make`` when it is
-missing, at its first import of ``protocol``; this script builds every
+The port builds its native codec library (``build/native/``, from the
+``native/`` sources) with ``make`` when it is missing, at its first
+import of ``protocol``; this script builds every
 CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
 ``nvcc``, then:
 
@@ -37,6 +38,18 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
    batch's fan-out equal, save and restore seconds and the file's bytes;
    then 5 more ticks under ``torch.profiler``, printing the top device
    ops with their counts;
+   then the mesh index (``parallel/``, ``--spatial-backend sharded``) at
+   BASELINE config 4's full width: 640,000 subscriptions in 64 worlds,
+   30 pipelined ticks of 16,384 staged queries on
+   ``ShardedCudaSpatialBackend`` over the virtual meshes (1,4) and (2,2)
+   of the card, every tick's fan-out equal lane for lane to the
+   single-card index's (sampled ticks to the cpu index's), a churn
+   folded on the device with no re-upload and a forced imbalance
+   re-sharded through one, each K12 program timed beside the
+   single-card index; an entity-sim server on a 2 x 2 mesh (10,000
+   entities, k=32, K7 launched); the CLI's 1 x 1 mesh boot and its
+   config error for a mesh larger than the card; two gloo ranks on the
+   one card held to the one-process mesh;
    then the query library at BASELINE config 12: 1,000,000 subscriptions
    in 4 worlds, pure cone / raycast / knn / density batches of 4,096
    queries, the mixed batch and a pure-radius one, p50/p99 wall and
@@ -109,7 +122,7 @@ CUDA kernel of the port from ``worldql_server_tpu_torch/csrc/`` with
     index's device segments must equal its host mirror; each scenario's
     wall, checks and SLO values are printed;
 12. holds K7 to its plain version, bit for bit, at every ``(N, K)`` the
-    driven paths of 9, 10 and 11 launched it at (warm-up, capacity and
+    driven paths of 6, 9, 10 and 11 launched it at (warm-up, capacity and
     delta sub-tiers, in this process and in the shards);
 13. prints one ``{"kernels": [...]}`` JSON line, the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
@@ -159,17 +172,20 @@ def phase_card(torch):
 
 
 def build_native_codec():
-    """The wire codec's native library: the port builds it at its first
-    import of ``protocol`` when it is missing
+    """The wire codec's native library: the port builds it from
+    ``native/`` into ``build/native/`` at its first import of
+    ``protocol`` when it is missing
     (``protocol/native_codec.py::ensure_built``). Without it the codec
     would need the ``flatbuffers`` package, which the card host does
     not have, so a codec that did not load fails the run."""
     t0 = time.perf_counter()
-    built = os.path.exists(os.path.join(REPO, "native", "libwqlcodec.so"))
+    built = os.path.exists(os.path.join(REPO, "build", "native",
+                                        "libwqlcodec.so"))
     from worldql_server_tpu_torch.protocol import codec
 
     if codec._native is None:
-        raise AssertionError("native/libwqlcodec.so did not build or load")
+        raise AssertionError("the native codec library did not build or "
+                             "load")
     if not built:
         print(f"native codec built in {time.perf_counter() - t0:.2f} s")
 
@@ -452,7 +468,7 @@ def _replay_interest(server, adopted, peers):
 
 async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
                        mixes=((1.0, 10),), device=None, extra_args=(),
-                       adopt=False):
+                       adopt=False, mesh_devices=None):
     """The entity-sim server at config 3's width, serving each
     ``(moving, min_ticks)`` of ``mixes`` in turn from one boot and one
     join. The entities register with the first mix's velocities; each
@@ -464,7 +480,10 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
     for each later one, and read just after the mix's last tick. With
     ``adopt``, the peers' frames go through the delivery plane's sender
     workers over socketpairs (``extra_args`` must ask for
-    ``--delivery-workers``). Returns ``(report, launches)`` a mix."""
+    ``--delivery-workers``). ``extra_args`` may name the index
+    (``--spatial-backend sharded`` with ``--mesh-*``: then the mesh is
+    built over ``mesh_devices``). Returns ``(report, launches)`` a
+    mix."""
     import uuid
 
     from worldql_server_tpu_torch.__main__ import (
@@ -487,16 +506,17 @@ async def drive_server(torch, n_entities=100_000, n_peers=64, n_worlds=4,
         "--no-ws", "--no-http", "--no-zmq", *extra_args,
     ])
     config = config_from_args(args)
-    apply_device_boot_defaults(config, backend_explicit=False,
-                               interval_explicit=True)
+    apply_device_boot_defaults(
+        config, backend_explicit="--spatial-backend" in extra_args,
+        interval_explicit=True)
     config.validate()
 
     knn_select.launches = 0  # the first mix's run starts here
     knn_select.shapes = {}
     t_boot = time.perf_counter()
-    server = WorldQLServer(config, device=device)
+    server = WorldQLServer(config, device=device, mesh_devices=mesh_devices)
     plane = server.entity_plane
-    if (config.spatial_backend != "cuda"
+    if (config.spatial_backend not in ("cuda", "sharded")
             or server.backend.device != plane.device):
         raise AssertionError(
             f"entity sim over {config.spatial_backend} on "
@@ -1883,6 +1903,384 @@ def phase_scenarios(torch):
     return launches, shapes
 
 
+#: BASELINE config 4 at full width (bench.py ``bench_config4``, not
+#: ``--quick``): 64 worlds x 10,000 clients, 30 ticks of 16,384 queries
+#: with the CSR capacity hint at 4 x queries
+CONFIG4 = {"worlds": 64, "per_world": 10_000, "queries": 16_384,
+           "ticks": 30}
+#: the virtual meshes of the index leg, all on the one card
+SHARDED_MESHES = ((1, 4), (2, 2))
+
+
+def _index_ticks(backend, batches):
+    """``batches`` through ``backend`` pipelined as the ticker runs them
+    (dispatch tick t+1, then collect tick t on a worker thread), the
+    capacity hint starting at 4 x queries. Returns the per-tick outputs
+    (each query's fan-out, in lane order) and stats."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    backend._delivery_cap = 4 * len(batches[0][0])
+    outs, ticks = [], []
+
+    def collect(handle):
+        out = backend.collect_local_batch(handle)
+        return out, dict(backend.last_collect_stats)
+
+    with ThreadPoolExecutor(1) as pool:
+        pending = None
+
+        def finish(item):
+            t_d, fut = item
+            out, fetched = fut.result()
+            ticks.append({"tick_ms": (time.perf_counter() - t_d) * 1e3,
+                          **fetched})
+            outs.append(out)
+
+        for b in batches:
+            t_d = time.perf_counter()
+            fut = pool.submit(collect, backend.dispatch_staged_batch(*b))
+            if pending is not None:
+                finish(pending)
+            pending = (t_d, fut)
+        finish(pending)
+    steady = ticks[1:]
+    return outs, {
+        "tick_ms": _ms_stats([r["tick_ms"] for r in steady]),
+        "fetch_bytes_p50": _ms_stats([r["fetch_bytes"] for r in steady])[
+            "p50"],
+        "fanout_per_tick": _ms_stats([sum(map(len, o)) for o in outs])[
+            "p50"],
+    }
+
+
+def _op_times(torch, single, mesh, batch, flush):
+    """CUDA-event ms of each K12 program on ``mesh`` beside its
+    single-card counterpart on ``single``, on the same index and one
+    batch: the CSR match (all shards + merges), one shard's match, the
+    merge of the flat partials, the pack, and the fold of base + delta."""
+    from worldql_server_tpu_torch.ops.index import (
+        CSR_ROW, _device_compact, pack_csr, run_bounds_all,
+        run_csr_assemble)
+    from worldql_server_tpu_torch.spatial.hashing import PAD_KEY, next_pow2
+    from worldql_server_tpu_torch.tools.knn_bench import cuda_time_ms
+
+    out = {}
+    for name, b in (("single", single), ("mesh", mesh)):
+        b.flush()
+        segs, ks, kinds = b._segments()
+        q = b._prepare_queries(*batch)
+        cap = b._csr_effective_cap(next_pow2(max(
+            4 * len(batch[0]), CSR_ROW * q[0].shape[0] * len(segs) + 64)),
+            q, segs)
+        counts, flat, total = b._dispatch_csr(q, segs, ks, kinds, cap)
+        bucket = next_pow2(max(2 * int(total), 1024))
+        row = {"t_cap": cap, "segments": list(kinds),
+               "csr_ms": cuda_time_ms(
+                   lambda: b._dispatch_csr(q, segs, ks, kinds, cap), 5,
+                   flush)}
+        if b is single:
+            row["pack_ms"] = cuda_time_ms(
+                lambda: pack_csr(counts, flat, bucket=bucket), 5, flush)
+        else:
+            row["pack_ms"] = cuda_time_ms(
+                lambda: b._pack_rows(counts, flat, bucket // b.n_batch), 5,
+                flush)
+            lsegs = b._local_segs(segs, 0, 0)
+            rq = b._row_queries(q, 0, 0)
+
+            def shard_match():
+                los, cnts = run_bounds_all(lsegs, rq)
+                return run_csr_assemble(lsegs, los, cnts, cnts, rq,
+                                        cap // b.n_batch)
+            row["shard_match_ms"] = cuda_time_ms(shard_match, 5, flush)
+            fl = cap // b.n_batch
+            parts = {(r, s): flat[r * fl:(r + 1) * fl].clone()
+                     for r in range(b.n_batch) for s in range(b.n_space)}
+            row["merge_ms"] = cuda_time_ms(
+                lambda: b._merge(parts, (fl,), -1), 5, flush)
+            row["mesh"] = b.mesh.shape
+        # the fold of base + delta into a fresh base, as a compaction
+        # runs it (the mesh: per shard over the old key ranges), at the
+        # base's current (shard) capacity
+        if b._delta_buf is not None and b._base_bundle is not None:
+            base = b._base_bundle
+            if b is single:
+                bk, bk2, bp = base["dev"][:3]
+                row["fold_ms"] = cuda_time_ms(lambda: _device_compact(
+                    bk, bk2, bp, *b._delta_buf, cap2=base["cap"],
+                    n_buckets=base["dev"][4].shape[0]), 5, flush)
+            else:
+                splits = base["splits"]
+                bounds = np.empty(b.n_space + 1, np.int64)
+                bounds[0] = np.iinfo(np.int64).min
+                bounds[-1] = np.int64(PAD_KEY)
+                for s in range(1, b.n_space):
+                    bounds[s] = b._bk[int(splits[s])]
+                cap2 = base["shard_cap"]
+                row["fold_ms"] = cuda_time_ms(lambda: b._fold_shards(
+                    base["dev"][:3], b._delta_buf, bounds, cap2,
+                    base["dev"][4].shape[1]), 5, flush)
+        out[name] = row
+    return out
+
+
+@phase("sharded mesh")
+def phase_sharded(torch, device="cuda", c4=None, n_two=262_144):
+    """The mesh index (``parallel/``) on the card.
+
+    Index leg: BASELINE config 4 at full width — 640,000 subscriptions
+    in 64 worlds (``tools/index_bench.py::build_index``), 30 ticks of
+    16,384 staged queries pipelined as the ticker runs them — on
+    ``ShardedCudaSpatialBackend`` over the virtual meshes (1,4) and
+    (2,2) of ``cuda:0``: every tick's fan-out equal, lane for lane, to
+    the single-card ``CudaSpatialBackend``'s and sampled ticks to the
+    cpu index's; then churn folded on the device with no re-upload, a
+    forced imbalance that re-shards through one, and each K12 program's
+    CUDA-event time beside the single-card index's. Served leg: an
+    in-process entity-sim server on a 2 x 2 mesh (config 3's shape at
+    10,000 entities), K7 launched. CLI leg: ``python -m
+    worldql_server_tpu_torch --spatial-backend sharded --mesh-batch 1
+    --mesh-space 1`` boots on the card and a mesh larger than the card
+    is a config error. Two-process leg: two gloo ranks on the one card
+    run one batch of one seeded index, held to the one-process mesh.
+    ``device="cpu"`` with a small ``c4`` rehearses the phase on the
+    CPU (no op timings there)."""
+    import subprocess
+    import urllib.request
+
+    from worldql_server_tpu_torch.parallel import (
+        ShardedCudaSpatialBackend, make_fanout_mesh)
+    from worldql_server_tpu_torch.spatial.cpu_backend import (
+        CpuSpatialBackend)
+    from worldql_server_tpu_torch.spatial.cuda_backend import (
+        CudaSpatialBackend)
+    from worldql_server_tpu_torch.spatial.quantize import cube_coords_batch
+    from worldql_server_tpu_torch.tools import mesh_drive
+    from worldql_server_tpu_torch.tools.index_bench import (
+        build_index, make_query_batch)
+
+    c4 = c4 or CONFIG4
+    n_subs = c4["worlds"] * c4["per_world"]
+    worlds = [f"world_{w}" for w in range(c4["worlds"])]
+    on_card = device == "cuda"
+    grid = ["cuda:0" if on_card else "cpu"] * 4
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def load(backend):
+        t0 = time.perf_counter()
+        got = build_index(backend, np.random.default_rng(SEED + 4), n_subs,
+                          c4["worlds"])
+        backend.flush()
+        backend.wait_compaction()
+        sync()
+        return got, time.perf_counter() - t0
+
+    single = CudaSpatialBackend(16, device=device)
+    (peers, pos, wids), load_s = load(single)
+    qrng = np.random.default_rng(SEED + 44)
+    batches = [make_query_batch(qrng, pos, wids, c4["queries"])
+               for _ in range(c4["ticks"])]
+    ref = CpuSpatialBackend(16)
+    cubes = cube_coords_batch(pos, 16)
+    for w in range(c4["worlds"]):
+        sel = np.flatnonzero(wids == w)
+        ref.bulk_add_subscriptions(worlds[w], [peers[i] for i in sel],
+                                   cubes[sel])
+    want, single_stats = _index_ticks(single, batches)
+    sample = (1, c4["ticks"] // 2, c4["ticks"] - 1)
+    oracle = {t: _cpu_fanout(ref, worlds, peers, batches[t]) for t in sample}
+    del ref
+    for t in sample:
+        _same_fanout(want[t], oracle[t], f"config-4 single-card tick {t}")
+    report = {"subscriptions": n_subs, "worlds": c4["worlds"],
+              "queries": c4["queries"], "ticks": c4["ticks"],
+              "single": {"load_s": load_s, **single_stats}}
+    print("sharded index single-card", json.dumps(report["single"]),
+          flush=True)
+
+    meshes = {}
+    for shape in SHARDED_MESHES:
+        mesh = ShardedCudaSpatialBackend(
+            16, make_fanout_mesh(*shape, devices=grid))
+        meshes[shape] = mesh
+        _, m_load = load(mesh)
+        if mesh.subscription_count() != single.subscription_count():
+            raise AssertionError(f"mesh {shape}: subscriptions differ")
+        outs, stats = _index_ticks(mesh, batches)
+        for t, (got, exp) in enumerate(zip(outs, want)):
+            if got != exp:
+                bad = sum(a != b for a, b in zip(got, exp))
+                raise AssertionError(
+                    f"mesh {shape} tick {t}: {bad} queries differ from the "
+                    "single-card index (lane order included)")
+        for t in sample:
+            _same_fanout(outs[t], oracle[t], f"config-4 mesh {shape} tick {t}")
+        if mesh._base_bundle is None:
+            raise AssertionError(f"mesh {shape}: no base segment")
+        row = {"mesh": shape, "load_s": m_load, **stats,
+               "splits": mesh._base_bundle["splits"].tolist(),
+               "shard_cap": mesh._base_bundle["shard_cap"],
+               "ticks_equal_single_card": len(outs),
+               "ticks_checked_against_cpu": list(sample)}
+        print("sharded index mesh", json.dumps(row), flush=True)
+        report[f"mesh_{shape[0]}x{shape[1]}"] = row
+    del want, oracle, outs
+
+    # churn on the (2,2) mesh and the single card alike: a fold on the
+    # device (no upload), then a forced imbalance (one re-upload)
+    mesh = meshes[(2, 2)]
+    uploads = []
+    real_upload = mesh._upload_base
+
+    def counted(*a, **kw):
+        uploads.append(len(a[0]))
+        return real_upload(*a, **kw)
+
+    mesh._upload_base = counted
+    crng = np.random.default_rng(SEED + 45)
+
+    def churn(n):
+        idx = crng.choice(n_subs, n, replace=False)
+        new = cubes[idx] + crng.integers(-1, 2, (n, 3)) * 16
+        for w in range(c4["worlds"]):
+            sel = idx[wids[idx] == w]
+            if not sel.size:
+                continue
+            ps = [peers[i] for i in sel]
+            old, nw = cubes[sel], new[wids[idx] == w]
+            for b in (single, mesh):
+                b.bulk_move_subscriptions(worlds[w], ps, old, ps, nw)
+        cubes[idx] = new
+        for b in (single, mesh):
+            b._compact_threshold_override = n // 4
+            b.flush()
+            b.wait_compaction()
+            b._compact_threshold_override = None
+        check = batches[0]
+        got = mesh.collect_local_batch(mesh.dispatch_staged_batch(*check))
+        exp = single.collect_local_batch(
+            single.dispatch_staged_batch(*check))
+        if got != exp:
+            raise AssertionError("mesh != single card after the fold")
+
+    n_churn = min(20_000, n_subs // 4)
+    before = mesh.compactions
+    churn(n_churn)
+    folds = mesh.compactions - before
+    if folds < 1 or uploads:
+        raise AssertionError(f"fold: {folds} compactions, uploads {uploads}")
+    # an index holding a delta for the op timings below
+    idx = crng.choice(n_subs, n_churn // 4, replace=False)
+    for b in (single, mesh):
+        for w in range(4):
+            sel = idx[wids[idx] == w]
+            b.bulk_add_subscriptions(worlds[w], [peers[i] for i in sel],
+                                     cubes[sel] + 16 * 3)
+        b.flush()
+    ops = None
+    if on_card:
+        flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        ops = _op_times(torch, single, mesh, batches[2], flush)
+        del flush
+    print("sharded ops ms", json.dumps(ops), flush=True)
+    mesh.RESHARD_IMBALANCE = -1.0
+    churn(n_churn)
+    if not uploads:
+        raise AssertionError("the forced imbalance did not re-shard")
+    report["fold"] = {"device_folds": folds, "uploads_after_imbalance":
+                      len(uploads), "compactions": mesh.compactions}
+    report["ops_ms"] = ops
+    print(f"sharded fold: {folds} compaction(s) folded on the device with "
+          f"no upload; the forced imbalance re-uploaded {len(uploads)} "
+          "time(s); fan-out equal to the single card after each",
+          flush=True)
+    del meshes, mesh, single
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # served: entity-sim on a 2 x 2 mesh of the card, 10,000 entities
+    ((served, launches),) = asyncio.run(drive_server(
+        torch, n_entities=10_000, mixes=((1.0, 3),), extra_args=(
+            "--spatial-backend", "sharded", "--mesh-batch", "2",
+            "--mesh-space", "2"), device=device, mesh_devices=grid))
+    # K7 launches on the card only (the CPU runs its plain version)
+    if not served["device"].startswith(device) or (on_card and (
+            launches == 0 or launches < served["dispatched"])):
+        raise AssertionError(f"sharded server: {served['device']}, knn "
+                             f"launches {launches}")
+    print("sharded server", json.dumps(served), flush=True)
+    report["served"] = {k: served[k] for k in (
+        "entities", "ticks", "dispatched", "tick_ms_p50", "tick_ms_p99",
+        "apply_ms_p50", "knn_shapes", "device", "boot_s")}
+
+    # the CLI: a 1 x 1 mesh boots on the card; 2 x 4 is a config error
+    env = {k: v for k, v in os.environ.items() if k != "WQL_TORCH_DEVICE"}
+    if not on_card:
+        env["WQL_TORCH_DEVICE"] = "cpu"
+    base = [sys.executable, "-m", "worldql_server_tpu_torch",
+            "--spatial-backend", "sharded", "--no-ws", "--no-zmq",
+            "--store-url", "memory://"]
+    big = subprocess.run(base + ["--mesh-batch", "2", "--mesh-space", "4",
+                                 "--no-http"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    if big.returncode != 1 or "exceeds" not in big.stderr:
+        raise AssertionError(f"2 x 4 mesh on one card: rc {big.returncode}"
+                             f" {big.stderr[-400:]}")
+    import socket as _socket
+
+    with _socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(base + ["--mesh-batch", "1", "--mesh-space",
+                                    "1", "--http-port", str(port)],
+                            cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        health = None
+        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                time.sleep(0.5)
+        if health is None or not str(
+                (health.get("device") or {}).get("index")).startswith(device):
+            raise AssertionError(f"CLI sharded boot: {health}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    report["cli"] = {"boot_s": time.perf_counter() - t0,
+                     "device": health["device"],
+                     "oversized_mesh": big.stderr.strip().splitlines()[-1]}
+    print("sharded cli", json.dumps(report["cli"]), flush=True)
+
+    # two gloo ranks on the one card, one seeded index, one batch
+    outs = mesh_drive.spawn(2, n_subs=n_two, m=c4["queries"], timeout=400,
+                            device=None if on_card else "cpu")
+    for out in outs:
+        if not out.get("ok"):
+            raise AssertionError(f"two-process leg: {out}")
+    if not outs[0].get("checked") or outs[0]["digest"] != outs[1]["digest"]:
+        raise AssertionError(f"two-process leg: {outs}")
+    report["two_process"] = [{k: o.get(k) for k in (
+        "rank", "mesh", "device", "shard_rows", "batch_ms", "fanout",
+        "backend")} for o in outs]
+    print("sharded two-process", json.dumps(report["two_process"]),
+          flush=True)
+    print("sharded", json.dumps(report), flush=True)
+    return report, launches, served["knn_shapes"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "worldql_server_tpu_torch")):
         print("chip_smoke: worldql_server_tpu_torch/ not found beside this "
@@ -1911,6 +2309,7 @@ def main() -> int:
     phase_index_ops(torch)
     phase_query_kernels(torch)
     phase_fanout(torch)
+    _, sharded_launches, sharded_shapes = phase_sharded(torch)
     phase_queries(torch)
     phase_churn(torch)
     phase_resilience(torch)
@@ -1922,7 +2321,7 @@ def main() -> int:
     path_rows = phase_knn_paths(torch, rates, {
         **shapes, **{f"cluster_shard{i}": s["knn_shapes"]
                      for i, s in enumerate(cluster["shards"])},
-        "scenarios": scenario_shapes})
+        "scenarios": scenario_shapes, "sharded": sharded_shapes})
 
     main_row = knn_rows[0]  # N=131,072, K=32: the server phase's shape
     kernels = {"kernels": [{
@@ -1935,13 +2334,15 @@ def main() -> int:
         # interest + delivery-workers server; the cluster's shards are
         # processes of their own, so theirs is each shard's count
         # (/healthz) after the last tick less its count before the peers
-        # registered; the scenarios' count spans the eleven scenarios
+        # registered; the scenarios' count spans the eleven scenarios;
+        # the sharded path is the entity-sim server on the 2 x 2 mesh
         "launches": (launches + lean_launches + cluster_launches
-                     + scenario_launches),
+                     + scenario_launches + sharded_launches),
         "launches_by_path": {"entity_sim": launches,
                              "entity_sim_interest_delivery": lean_launches,
                              "cluster": cluster_launches,
-                             "scenarios": scenario_launches},
+                             "scenarios": scenario_launches,
+                             "sharded": sharded_launches},
         "max_abs_err": max(r["max_abs_err"] for r in knn_rows + path_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -8,8 +8,9 @@ the card against the port's ``CpuSpatialBackend`` under churn — and the
 query library: its stencil kernels (K10, K11) on the card against the
 CPU, and a mixed kind batch through ``CudaSpatialBackend`` on the card
 against the cpu index's oracles — and a cluster of two entity-sim shard
-processes on the card with a live move of a world between them, and the
-``battle_royale`` scenario on the card.
+processes on the card with a live move of a world between them, the
+``battle_royale`` scenario on the card, and the mesh index on a 2 x 2
+virtual mesh of the card against the same mesh of the CPU.
 
 Every test carries the ``cuda`` marker and skips (with a reason) on a
 host without a card; whether there is one is decided inside each test.
@@ -493,3 +494,69 @@ def test_battle_royale_scenario_on_card(monkeypatch):
     assert report["device"]["index"].startswith("cuda")
     assert report["device"]["entity_plane"].startswith("cuda")
     assert knn_select.launches > 0
+
+
+def test_sharded_mesh_on_card_equals_cpu_mesh():
+    """ShardedCudaSpatialBackend on a 2 x 2 virtual mesh of the card
+    (``cuda:0`` four times) against the same mesh of the CPU, under bulk
+    loads, moves, peer removals and drained device folds: the dense
+    table, the raw CSR triple, the packed fetch and every shard's base
+    arrays equal, lane for lane."""
+    _need_card()
+    import uuid
+
+    from worldql_server_tpu_torch.parallel import (
+        ShardedCudaSpatialBackend, make_fanout_mesh)
+    from worldql_server_tpu_torch.spatial.quantize import cube_coords_batch
+
+    rng = np.random.default_rng(2024)
+    n = 4000
+    pair = [ShardedCudaSpatialBackend(
+        16, make_fanout_mesh(2, 2, devices=[dev] * 4), compact_threshold=512)
+        for dev in ("cuda:0", "cpu")]
+    for b in pair:
+        b.compact_fetch_min_cap = 0
+        b.compact_min_bucket = 8
+    peers = [uuid.UUID(int=0xE000 + i) for i in range(n)]
+    spots = rng.integers(-8, 8, (80, 3)) * 16 + 8.0
+    pos = spots[rng.integers(0, 80, n)] + rng.uniform(-7, 7, (n, 3))
+    cubes = cube_coords_batch(pos, 16)
+    for b in pair:
+        b.bulk_add_subscriptions("w", peers, cubes)
+        b.flush()
+        b.wait_compaction()
+    for step in range(6):
+        idx = rng.choice(n, 300, replace=False)
+        new = cubes[idx] + rng.integers(-1, 2, (300, 3)) * 16
+        sel = [peers[i] for i in idx]
+        gone = peers[int(rng.integers(0, n))]
+        for b in pair:
+            b.bulk_move_subscriptions("w", sel, cubes[idx], sel, new)
+            b.remove_peer(gone)
+            b.flush()
+            b.wait_compaction()
+        cubes[idx] = new
+        m = 1024
+        qpos = spots[rng.integers(0, 80, m)] + rng.uniform(-7, 7, (m, 3))
+        batch = (np.zeros(m, np.int32), qpos,
+                 rng.integers(-1, n, m).astype(np.int32),
+                 rng.integers(0, 3, m).astype(np.int8))
+        dense = [b.match_arrays(*batch) for b in pair]
+        assert np.array_equal(*dense), step
+        csr = [b.match_arrays_async(*batch, csr_cap=1 << 18)[1]
+               for b in pair]
+        assert int(csr[1][2]) <= 1 << 18  # no overflow sentinel
+        for a, c in zip(*csr):
+            assert a.device.type == "cuda"
+            assert torch.equal(a.cpu(), c), step
+        total = int(csr[1][2])
+        packed = [b._compact_fetch(r[0], r[1], total, r[1].shape[0])
+                  for b, r in zip(pair, csr)]
+        assert packed[0] is not None and np.array_equal(*packed), step
+        gpu, cpu = (b._base_bundle for b in pair)
+        assert np.array_equal(gpu["splits"], cpu["splits"])
+        for ga, ca in zip(gpu["dev"], cpu["dev"]):
+            for s in range(2):
+                assert ga.shard(s).device.type == "cuda"
+                assert torch.equal(ga.shard(s).cpu(), ca.shard(s)), step
+    assert pair[0].compactions == pair[1].compactions > 0

@@ -8,7 +8,9 @@
 * RecordCreate / RecordRead / RecordDelete over real ZeroMQ, with
   ``--durability off``, ``sync`` and ``wal``: the port's server and the
   JAX server send one client the same ``RecordReply`` bytes, in the same
-  order.
+  order, both encoding with the native codec (``bind_one_serializer``:
+  on a tree without ``native/libwqlcodec.so`` the JAX package would
+  otherwise keep the Python flatbuffers builder, whose bytes differ).
 
 Tolerance: exact (record fields, wire bytes).
 """
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 
 from tests.client_util import ZmqClient, free_port
+from tests.test_torch_entity_plane import bind_one_serializer
 from worldql_server_tpu.durability import recovery as j_recovery
 from worldql_server_tpu.durability import wal as j_wal
 from worldql_server_tpu.engine.config import Config as JConfig
@@ -175,7 +178,12 @@ async def _record_session(server, config):
 
 
 @pytest.mark.parametrize("durability", ["off", "sync", "wal"])
-def test_record_replies_equal_the_jax_server(tmp_path, durability):
+def test_record_replies_equal_the_jax_server(tmp_path, durability,
+                                             monkeypatch):
+    # reply bytes are comparable only from one encoder: the JAX package
+    # gets the native one the port bound (tests/test_torch_entity_plane.py)
+    bind_one_serializer(monkeypatch)
+
     def config(cls, name):
         return cls(store_url="memory://", ws_enabled=False,
                    http_enabled=False, zmq_server_host="127.0.0.1",

@@ -21,6 +21,7 @@ two rounded operations, which is what the replay assumes.
 from __future__ import annotations
 
 import asyncio
+import os
 import struct
 import uuid
 
@@ -30,11 +31,13 @@ import pytest
 from worldql_server_tpu.spatial import jaxconf  # noqa: F401
 
 from worldql_server_tpu import entities as j_entities
+from worldql_server_tpu.engine import peers as j_peers
 from worldql_server_tpu.engine.peers import PeerMap as JPeerMap
 from worldql_server_tpu.ops import tick as jt
 import worldql_server_tpu.protocol as j_protocol
 from worldql_server_tpu.protocol import Instruction, Message
 from worldql_server_tpu.protocol import codec as j_codec
+from worldql_server_tpu.protocol import entity_wire as j_entity_wire
 from worldql_server_tpu.protocol import native_codec as j_native_codec
 from worldql_server_tpu.protocol import deserialize_message as j_deser
 from worldql_server_tpu.protocol import serialize_message as j_ser
@@ -44,6 +47,8 @@ from worldql_server_tpu_torch import entities as t_entities
 from worldql_server_tpu_torch.engine.peers import PeerMap as TPeerMap
 from worldql_server_tpu_torch.ops import tick as tt
 from worldql_server_tpu_torch.protocol import codec as t_codec
+from worldql_server_tpu_torch.protocol import entity_wire as t_entity_wire
+from worldql_server_tpu_torch.protocol import native_codec as t_native_codec
 from worldql_server_tpu_torch.protocol import deserialize_message as t_deser
 from worldql_server_tpu_torch.protocol import serialize_message as t_ser
 from worldql_server_tpu_torch.spatial.cpu_backend import (
@@ -61,6 +66,29 @@ def vel_flex(v) -> bytes:
     return struct.pack("<3f", *v)
 
 
+def jax_entity_wire():
+    """The JAX package's native entity codec, over the library the port
+    bound. The JAX package binds its own only if
+    ``native/libwqlcodec.so`` exists at its first use; the port builds
+    its copy of the library (``build/native/``, the same sources) at
+    its import. Where only the port has one, the JAX package loads its
+    codec from the port's build, as ``WQL_NATIVE_CODEC=<path>`` selects
+    it, so both planes and both ingests take the same decode and
+    encode paths."""
+    wire = j_entity_wire.shared()
+    if wire is not None or t_entity_wire.shared() is None:
+        return wire
+    old = os.environ.get("WQL_NATIVE_CODEC")
+    os.environ["WQL_NATIVE_CODEC"] = str(t_native_codec.resolve_lib_path())
+    try:
+        return j_entity_wire.load()
+    finally:
+        if old is None:
+            del os.environ["WQL_NATIVE_CODEC"]
+        else:
+            os.environ["WQL_NATIVE_CODEC"] = old
+
+
 class Twin:
     """One JAX plane and one port plane, fed identical bytes."""
 
@@ -68,14 +96,17 @@ class Twin:
         kw = dict(cube_size=CUBE, k=k, dt=0.05, bounds=1000.0,
                   delta_ticks=delta_ticks)
         self.jb, self.tb = JCpu(CUBE), TCpu(CUBE)
-        self.jp = j_entities.EntityPlane(self.jb, JPeerMap(), **kw)
+        j_wire = jax_entity_wire()
+        self.jp = j_entities.EntityPlane(self.jb, JPeerMap(), wire=j_wire,
+                                         **kw)
         self.jp._tick_fn = jt.make_tick_fn(cube_size=CUBE, k=k, dt=0.05,
                                            bounds=1000.0)
         self.tp = t_entities.EntityPlane(self.tb, TPeerMap(), device="cpu",
                                          **kw)
         self.sides = [
             (self.jp, j_entities.ColumnarIngest(
-                self.jp, sender_known=lambda u: True), j_deser),
+                self.jp, sender_known=lambda u: True, wire=j_wire),
+             j_deser),
             (self.tp, t_entities.ColumnarIngest(
                 self.tp, sender_known=lambda u: True), t_deser),
         ]
@@ -143,22 +174,27 @@ def _frames(pairs, ser):
 def bind_one_serializer(monkeypatch):
     """Make the JAX package serialize with the encoder the port bound.
 
-    Each package binds its native encoder only if
+    The JAX package binds its native encoder only if
     ``native/libwqlcodec.so`` existed when its ``protocol`` package was
-    imported, and the port builds the library at that import. On a tree
-    without the library the JAX package, imported first, keeps the
-    Python flatbuffers builder, which lays out the same ``Message`` in
-    other bytes (and other lengths: interest bandwidth admission charges
-    a frame its length, so even which frames go out differs). Frames
-    built as objects are comparable byte for byte only from one encoder,
-    so the JAX package gets its own native encoder, the one it binds
-    when the library is there at its import."""
+    imported; the port builds its own copy of the library
+    (``build/native/libwqlcodec.so``, from the same sources) at that
+    import. On a tree without ``native/libwqlcodec.so`` the JAX package
+    keeps the Python flatbuffers builder, which lays out the same
+    ``Message`` in other bytes (and other lengths: interest bandwidth
+    admission charges a frame its length, so even which frames go out
+    differs). Frames built as objects are comparable byte for byte only
+    from one encoder, so the JAX package gets its own native encoder
+    over the port's build, as ``WQL_NATIVE_CODEC=<path>`` selects it."""
     if (j_codec._native is None) == (t_codec._native is None):
         return
     assert j_codec._native is None, "the port is the side that built it"
+    monkeypatch.setenv("WQL_NATIVE_CODEC",
+                       str(t_native_codec.resolve_lib_path()))
     encode = j_native_codec.load().encode
     monkeypatch.setattr(j_protocol, "serialize_message", encode)
     monkeypatch.setattr(j_codec, "serialize_message", encode)
+    # the JAX PeerMap bound the name at its import: replies go out here
+    monkeypatch.setattr(j_peers, "serialize_message", encode)
     monkeypatch.setitem(globals(), "j_ser", encode)
 
 

@@ -96,6 +96,13 @@ def test_port_imports_with_jax_and_the_jax_package_poisoned():
         "import worldql_server_tpu_torch.scenarios.__main__\n"
         "from worldql_server_tpu_torch.scenarios import CATALOG\n"
         "assert len(CATALOG) == 11\n"
+        "import worldql_server_tpu_torch.parallel\n"
+        "import worldql_server_tpu_torch.parallel.mesh\n"
+        "import worldql_server_tpu_torch.parallel.sharded_backend\n"
+        "from worldql_server_tpu_torch.parallel import (\n"
+        "    ShardedCudaSpatialBackend, make_fanout_mesh)\n"
+        "ShardedCudaSpatialBackend(\n"
+        "    16, make_fanout_mesh(2, 2, devices=['cpu'] * 4))\n"
         "print('ok')\n"
     )
     env = dict(os.environ, WQL_TORCH_DEVICE="cpu")

@@ -10,10 +10,12 @@
   ``mark_resync``; so must the arguments ``build_pairs`` receives from
   ``collect_tick`` (dtypes, shapes, ``-1`` pads), the plane attributes
   ``_center_of`` and ``_encode_template`` read, and every peer's ledger.
-  The native template encode is taken in both packages whenever
-  ``native/libwqlcodec.so`` is there; the object encode is held to the
-  same bytes, both packages serializing with the native encoder (see
-  ``bind_one_serializer``). Each peer's frames, replayed through the port's
+  The native template encode is taken in both packages whenever the
+  port's build of the native library is there (the JAX package, if it
+  found no ``native/libwqlcodec.so``, is handed its own entity codec
+  over that build: ``jax_entity_wire``); the object encode is held to
+  the same bytes, both packages serializing with the native encoder
+  (see ``bind_one_serializer``). Each peer's frames, replayed through the port's
   ``ReplayClient``, refuse no delta, see no gap, and end equal to the
   ledger.
 * Over real ZeroMQ, ``--entity-sim --interest on`` on the port (cuda
@@ -29,7 +31,6 @@ Tolerance: exact (wire bytes, ledgers, replayed positions).
 from __future__ import annotations
 
 import asyncio
-import os
 import uuid
 
 import numpy as np
@@ -47,10 +48,10 @@ from worldql_server_tpu_torch.engine.server import WorldQLServer as TServer
 from worldql_server_tpu_torch.interest import (
     InterestManager as TManager, ReplayClient, parse_stamp)
 from worldql_server_tpu_torch.interest.manager import PARAM_DELTA
+from worldql_server_tpu_torch.protocol import native_codec as t_native_codec
 from worldql_server_tpu_torch.protocol import (
     Instruction, Message, deserialize_message)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEERS = [uuid.UUID(int=0xA100 + i) for i in range(5)]
 
 
@@ -104,14 +105,15 @@ def test_twin_planes_emit_equal_interest_frames(encode, monkeypatch):
         # deltas that follow run it dry within a few ticks
         mgr.bandwidth_burst = 700.0
     twin.jp.interest, twin.tp.interest = jm, tm
-    native = os.path.exists(os.path.join(REPO, "native", "libwqlcodec.so"))
+    port_lib = t_native_codec.resolve_lib_path()
+    native = port_lib is not None and port_lib.exists()
     for plane in (twin.jp, twin.tp):
         assert bool(getattr(plane._wire, "can_encode_interest", False)) \
             == native
         if encode == "object":
             plane._wire = None
         elif not native:
-            pytest.skip("native/libwqlcodec.so is not built")
+            pytest.skip("the port's native library is not built")
     bind_one_serializer(monkeypatch)
     recs = [Recorder(jm), Recorder(tm)]
     ents = []

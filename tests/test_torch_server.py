@@ -38,10 +38,10 @@ transport lags behind the ticks.
 Also: ``python -m worldql_server_tpu_torch --help`` boots, and the
 port's config accepts ``cuda``, the query library, resilience, the
 delivery plane, sessions, the overload governor, interest management,
-index snapshots, the cluster tier and the SLO engine, and rejects the
-``sharded`` index, which it does not have yet. A boot warm-up that
-fails fails the port's boot, where the JAX server logs it and serves
-with cold caches.
+index snapshots, the cluster tier, the SLO engine and the ``sharded``
+mesh index (its server builds one), and rejects ``tpu``. A boot
+warm-up that fails fails the port's boot, where the JAX server logs it
+and serves with cold caches.
 """
 
 from __future__ import annotations
@@ -395,11 +395,22 @@ def test_cli_without_a_card_exits_with_an_error():
     ("spatial_backend", "tpu"), ("spatial_backend", "sharded"),
 ])
 def test_config_rejects_unported(field, value):
+    """'tpu' names the JAX package's index, which the port serves as
+    cuda, and is refused; 'sharded', the mesh index, is ported: it
+    validates and its server builds a ``ShardedCudaSpatialBackend`` on
+    a mesh of the CPU here."""
     config = _config(TConfig, **{field: value})
-    # 'tpu' names the JAX package's index, which the port serves as cuda
-    match = "serves it as 'cuda'" if value == "tpu" else "not yet ported"
-    with pytest.raises(ValueError, match=match):
-        config.validate()
+    if value == "tpu":
+        with pytest.raises(ValueError, match="serves it as 'cuda'"):
+            config.validate()
+        return
+    from worldql_server_tpu_torch.parallel import ShardedCudaSpatialBackend
+
+    config.validate()
+    server = TServer(config, device="cpu")
+    assert isinstance(server.backend, ShardedCudaSpatialBackend)
+    assert server.backend.mesh.shape == {"batch": 1, "space": 1}
+    assert server.entity_plane.device == server.backend.device
 
 
 @pytest.mark.parametrize("field,value", [

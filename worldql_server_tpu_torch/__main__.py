@@ -8,10 +8,10 @@ the overload governor (``--overload``), interest-managed fan-out
 (``--interest``), index snapshots (``--index-snapshot``), the SLO engine
 and incident capsules (``--slo``, ``--incident-dir``) and the cluster
 tier (``--cluster-shards N`` boots the router and N shard servers of
-this package). The ``sharded`` index is not ported yet and fails
-validation with a "not yet ported" config error (engine/config.py).
-The device work runs on the card unless ``WQL_TORCH_DEVICE=cpu`` asks
-for the CPU.
+this package) and the ``sharded`` mesh index (``--mesh-batch``,
+``--mesh-space``; a mesh larger than the visible cards is a config
+error, as in the JAX package). The device work runs on the card unless
+``WQL_TORCH_DEVICE=cpu`` asks for the CPU.
 
 Flag surface mirrors the reference's clap Args (worldql_server/src/
 args.rs:21-129): every flag falls back to a ``WQL_*`` environment
@@ -76,9 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-zmq", action="store_true")
     p.add_argument("--spatial-backend",
                    choices=["cpu", "tpu", "sharded", "cuda"],
-                   help="subscription index: 'cpu' (host AreaMap) or "
-                        "'cuda' (the device index; default on a card); "
-                        "'tpu' and 'sharded' fail validation")
+                   help="subscription index: 'cpu' (host AreaMap), "
+                        "'cuda' (the device index; default on a card) or "
+                        "'sharded' (the device index over a "
+                        "--mesh-batch x --mesh-space mesh of cards); "
+                        "'tpu' fails validation")
     p.add_argument("--tick-interval", type=float)
     p.add_argument("--tick-pipeline", type=int,
                    help="max dispatched-but-undelivered ticks: 1 "
@@ -516,6 +518,25 @@ def main(argv: list[str] | None = None) -> int:
     if port_error is not None:
         print(f"config error: {port_error}", file=sys.stderr)
         return 1
+
+    if config.spatial_backend == "sharded":
+        # Mesh construction can reject shapes validate() can't see
+        # (device count not divisible by mesh_batch, a mesh larger than
+        # the visible cards); fail it as a config error rather than a
+        # traceback from server bring-up. A multi-process mesh spans
+        # every rank's cards, so the process group is joined first.
+        from .parallel.mesh import (
+            make_fanout_mesh, maybe_initialize_distributed)
+
+        try:
+            maybe_initialize_distributed()
+            make_fanout_mesh(config.mesh_batch, config.mesh_space or None)
+        except ValueError as exc:
+            print(f"config error: {exc}", file=sys.stderr)
+            return 1
+        except RuntimeError as exc:  # the card asked for is missing
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
 
     if config.cluster_shards > 0:
         # Router tier: the public listener + the supervised shard

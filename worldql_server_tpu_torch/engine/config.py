@@ -16,9 +16,9 @@ self-contained).
 Port status (ROADMAP.md): the fields are the JAX package's, so the
 flag surface is the same. The device index is ``cuda``
 (spatial/cuda_backend.py, the port of the JAX package's ``tpu``
-backend); ``tpu`` is refused with a pointer to it, and the ``sharded``
-mesh index, which the port does not have yet, with a "not yet ported"
-error. The query library (``query_kinds``, on by default as in the JAX
+backend); ``tpu`` is refused with a pointer to it. The ``sharded`` mesh
+index (parallel/, over ``mesh_batch`` x ``mesh_space``) is served as in
+the JAX package. The query library (``query_kinds``, on by default as in the JAX
 package), the resilient backend (``resilience``), the delivery plane
 (``delivery_workers``), sessions (``session_ttl``), the overload
 governor (``overload``), interest management (``interest``), index
@@ -26,7 +26,8 @@ snapshots (``index_snapshot``), the SLO engine and incident capsules
 (``slo``, ``slo_file``, ``incident_*``) and the cluster tier
 (``cluster_shards``, ``cluster_role`` and live resharding) are ported,
 off by default as in the JAX package. As in the JAX package,
-``entity_sim`` and ``delta_ticks='on'`` require the device index.
+``entity_sim`` and ``delta_ticks='on'`` require a device index
+(``cuda`` or ``sharded``).
 """
 
 from __future__ import annotations
@@ -116,9 +117,9 @@ class Config:
 
     # --- rebuild-specific knobs ------------------------------------
     # Which SpatialBackend answers proximity queries: 'cpu' (the host
-    # AreaMap) or 'cuda' (the device index). 'tpu' names the JAX
-    # package's and is refused with a pointer to 'cuda'; 'sharded' is
-    # not yet ported.
+    # AreaMap), 'cuda' (the device index) or 'sharded' (the device
+    # index over a mesh, parallel/). 'tpu' names the JAX package's and
+    # is refused with a pointer to 'cuda'.
     spatial_backend: str = field(
         default_factory=lambda: _env("WQL_SPATIAL_BACKEND", "cpu")
     )
@@ -599,13 +600,10 @@ class Config:
                 "spatial_backend 'tpu' is the JAX package's device index "
                 "— worldql_server_tpu_torch serves it as 'cuda'"
             )
-        elif self.spatial_backend == "sharded":
+        elif self.spatial_backend not in ("cpu", "cuda", "sharded"):
             errors.append(
-                "spatial_backend 'sharded' is not yet ported to "
-                "worldql_server_tpu_torch — use 'cuda'"
-            )
-        elif self.spatial_backend not in ("cpu", "cuda"):
-            errors.append("spatial_backend must be 'cpu' or 'cuda'")
+                "spatial_backend must be 'cpu' or 'cuda', or 'sharded' "
+                "for the mesh index")
         if (
             os.environ.get("WQL_DIST_COORDINATOR")
             and self.spatial_backend != "sharded"
@@ -625,7 +623,7 @@ class Config:
         if self.query_staging == "on" and self.spatial_backend == "cpu":
             errors.append(
                 "query_staging='on' requires a staging-capable spatial "
-                "backend ('cuda'); the CPU backend resolves "
+                "backend ('cuda' or 'sharded'); the CPU backend resolves "
                 "per query — use 'auto' to enable staging only when "
                 "supported"
             )
@@ -694,7 +692,8 @@ class Config:
             if self.spatial_backend == "cpu":
                 errors.append(
                     "entity_sim requires a device spatial backend "
-                    "('cuda') — the simulation tick integrates and "
+                    "('cuda' or 'sharded') — the simulation tick "
+                    "integrates and "
                     "resolves kNN on device"
                 )
             if self.tick_interval <= 0:
@@ -755,7 +754,8 @@ class Config:
         if self.delta_ticks == "on" and self.spatial_backend == "cpu":
             errors.append(
                 "delta_ticks='on' requires a device spatial backend "
-                "('cuda') — the cpu backend resolves per query; use "
+                "('cuda' or 'sharded') — the cpu backend resolves per "
+                "query; use "
                 "'auto' to enable delta ticks only where supported"
             )
         if not 0 < self.delta_rebuild_threshold <= 1:

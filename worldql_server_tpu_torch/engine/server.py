@@ -23,8 +23,9 @@ robustness/overload.py), the SLO engine and incident capsules
 (``--slo``, observability/), the cluster shard extension
 (``--cluster-role shard``, cluster/shard.py: a shard behind the router
 of ``--cluster-shards N``), the ticker, router, transports, durability
-and the flight recorder. ``Config.validate()`` rejects the ``sharded``
-mesh index, which is not ported yet.
+and the flight recorder; and the ``sharded`` mesh index (parallel/),
+whose entity plane, boot walk and telemetry run on the mesh's first
+device.
 """
 
 from __future__ import annotations
@@ -46,24 +47,49 @@ from .router import Router
 logger = logging.getLogger(__name__)
 
 
-def build_backend(config: Config, device=None) -> SpatialBackend:
+def build_backend(config: Config, device=None,
+                  mesh_devices=None) -> SpatialBackend:
     """The subscription index: the device index on ``device`` (the card
-    unless the caller asks for the CPU) for ``cuda``, else the host
-    AreaMap."""
+    unless the caller asks for the CPU) for ``cuda``; for ``sharded``
+    the mesh index over ``mesh_batch`` x ``mesh_space`` of
+    ``mesh_devices`` (a device may repeat: virtual shards), or of the
+    visible cards (the CPU when ``device`` or ``WQL_TORCH_DEVICE`` asks
+    for it) when None; else the host AreaMap."""
     if config.spatial_backend == "cuda":
         from ..spatial.cuda_backend import CudaSpatialBackend
 
         backend = CudaSpatialBackend(config.sub_region_size, device=device)
-        # delta ticks configure HERE so a resilience rebuild's factory
-        # (which calls build_backend again) re-arms the fresh instance
-        # — its cache starts cold, never stale
-        if config.delta_ticks != "off":
-            backend.configure_delta_ticks(config.delta_ticks)
-            backend.delta_rebuild_threshold = (
-                config.delta_rebuild_threshold
-            )
-        return backend
-    return CpuSpatialBackend(config.sub_region_size)
+    elif config.spatial_backend == "sharded":
+        from ..parallel import (
+            ShardedCudaSpatialBackend,
+            make_fanout_mesh,
+            maybe_initialize_distributed,
+        )
+        from ..spatial.torchconf import resolve_device
+
+        maybe_initialize_distributed()
+        if mesh_devices is None and device is not None \
+                and resolve_device(device).type == "cpu":
+            mesh_devices = ["cpu"]
+        mesh = make_fanout_mesh(
+            config.mesh_batch, config.mesh_space or None,
+            devices=mesh_devices,
+        )
+        logger.info(
+            "sharded spatial backend on mesh batch=%d space=%d",
+            mesh.shape["batch"], mesh.shape["space"],
+        )
+        backend = ShardedCudaSpatialBackend(config.sub_region_size, mesh)
+    else:
+        return CpuSpatialBackend(config.sub_region_size)
+    # delta ticks configure HERE so a resilience rebuild's factory
+    # (which calls build_backend again) re-arms the fresh instance —
+    # its cache starts cold, never stale; on the mesh, result reuse is
+    # per-shard flat-region replay, armed like the single-device path
+    if config.delta_ticks != "off":
+        backend.configure_delta_ticks(config.delta_ticks)
+        backend.delta_rebuild_threshold = config.delta_rebuild_threshold
+    return backend
 
 
 class WorldQLServer:
@@ -73,6 +99,7 @@ class WorldQLServer:
         backend: SpatialBackend | None = None,
         store: RecordStore | None = None,
         device=None,
+        mesh_devices=None,
     ):
         config.validate()
         self.config = config
@@ -87,8 +114,14 @@ class WorldQLServer:
             )
         elif config.failpoints_seed is not None:
             failpoints.registry.seed(config.failpoints_seed)
-        self.backend = (backend if backend is not None
-                        else build_backend(config, device=device))
+        self.backend = (
+            backend if backend is not None
+            else build_backend(config, device=device,
+                               mesh_devices=mesh_devices))
+        if config.spatial_backend == "sharded":
+            # the entity plane shares the index's device: the mesh's
+            # first (build_backend above made it from the same ask)
+            device = getattr(self.backend, "device", device)
         if config.resilience == "on":
             from ..robustness.resilient import ResilientBackend
 
@@ -99,7 +132,9 @@ class WorldQLServer:
                     # kind on the same device; injected test backends
                     # can't be re-made
                     factory=(
-                        (lambda: build_backend(config, device=device))
+                        (lambda: build_backend(
+                            config, device=device,
+                            mesh_devices=mesh_devices))
                         if backend is None else None
                     ),
                     failover_after=config.failover_after,

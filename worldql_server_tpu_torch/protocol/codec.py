@@ -18,8 +18,9 @@ additionally cap frame size.
 
 The ``flatbuffers`` runtime is imported inside the pure-Python codec
 functions, not at module top: with the native library
-(``native/libwqlcodec.so``) built, encode and decode never reach them,
-and the port then needs no ``flatbuffers`` package at all.
+(``build/native/libwqlcodec.so``, protocol/native_codec.py) built,
+encode and decode never reach them, and the port then needs no
+``flatbuffers`` package at all.
 """
 
 from __future__ import annotations

@@ -1,8 +1,14 @@
 """ctypes bridge to the native C++ wire codec (native/codec.cpp).
 
-Loads ``native/libwqlcodec.so``, building it first with ``make -C
-native`` when the in-tree library is missing (:func:`ensure_built`:
-the library is gitignored, so a fresh checkout has none). Without it
+Loads the port's own build of the native library,
+``build/native/libwqlcodec.so``, compiling it first from the
+``native/`` sources with ``native/Makefile``'s compiler and flags when
+it is missing (:func:`ensure_built`; ``build/`` is gitignored, so a
+fresh checkout has none). The port never writes
+``native/libwqlcodec.so``: that file is the JAX package's, which binds
+its codec by whether the file exists when it is imported, so a library
+that appeared there mid-session would hand one test session two
+codecs. Without it
 — no compiler, or ``WQL_NATIVE_CODEC=0`` — ``load()`` returns None and
 the protocol package stays on the pure-Python codec: same semantics,
 slower. The reference
@@ -31,9 +37,13 @@ from .types import Entity, Instruction, Message, Record, Replication, Vector3
 
 logger = logging.getLogger(__name__)
 
-_LIB_PATH = Path(__file__).resolve().parent.parent.parent / "native" / "libwqlcodec.so"
-#: lock serialising the build across processes (gitignored ``build/``)
-_BUILD_LOCK = _LIB_PATH.parent.parent / "build" / "native.lock"
+_REPO = Path(__file__).resolve().parent.parent.parent
+#: the shared C++ sources and their Makefile
+_NATIVE_DIR = _REPO / "native"
+#: the port's build of them (gitignored ``build/``)
+_LIB_PATH = _REPO / "build" / "native" / "libwqlcodec.so"
+#: lock serialising the build across processes
+_BUILD_LOCK = _REPO / "build" / "native.lock"
 
 MAX_OBJS = 1024
 
@@ -254,7 +264,7 @@ class _TooManyObjects(Exception):
 
 def resolve_lib_path() -> Path | None:
     """Where the native shared library lives, honoring WQL_NATIVE_CODEC
-    ('0' disables, '1'/unset = in-tree build, else a path). Shared by
+    ('0' disables, '1'/unset = the port's build, else a path). Shared by
     every native binding (codec, spatial keys) so the policy cannot
     diverge."""
     env = os.environ.get("WQL_NATIVE_CODEC", "1")
@@ -264,8 +274,10 @@ def resolve_lib_path() -> Path | None:
 
 
 def ensure_built() -> None:
-    """Build the in-tree library (``make -C native``) when it is the one
-    configured (WQL_NATIVE_CODEC unset or '1') and missing. Called by
+    """Build the port's library from ``native/`` (``make -C native``
+    with a rule for the port's output path that reuses the Makefile's
+    ``$(CXX) $(CXXFLAGS)``) when it is the one configured
+    (WQL_NATIVE_CODEC unset or '1') and missing. Called by
     :func:`load`, which the ``protocol`` package runs at its import.
     Several processes may start at once (test workers, a server and
     its tools): the check and the build happen under an exclusive
@@ -274,14 +286,17 @@ def ensure_built() -> None:
     leaves the Python fallback."""
     if os.environ.get("WQL_NATIVE_CODEC", "1") != "1":
         return
-    _BUILD_LOCK.parent.mkdir(parents=True, exist_ok=True)
+    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(_BUILD_LOCK, "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if _LIB_PATH.exists():
             return
+        rule = (f"{_LIB_PATH}: codec.cpp spatial.cpp\n"
+                "\t$(CXX) $(CXXFLAGS) -shared -o $@ codec.cpp spatial.cpp")
         try:
             proc = subprocess.run(
-                ["make", "-C", str(_LIB_PATH.parent), _LIB_PATH.name],
+                ["make", "-C", str(_NATIVE_DIR), "--no-print-directory",
+                 f"--eval={rule}", str(_LIB_PATH)],
                 capture_output=True, text=True, check=False,
             )
         except OSError as exc:  # no make on this host
@@ -295,7 +310,7 @@ def ensure_built() -> None:
 def load() -> NativeCodec | None:
     """Load the native codec, or None (pure-Python fallback).
     WQL_NATIVE_CODEC: '0' forces the fallback, '1'/unset uses the
-    in-tree build (built here when missing), any other value is a path
+    port's build (built here when missing), any other value is a path
     to the shared library (containers install it outside the source
     tree)."""
     env = os.environ.get("WQL_NATIVE_CODEC", "1")
@@ -325,8 +340,8 @@ def load() -> NativeCodec | None:
     if lib_cap != MAX_OBJS:
         logger.warning(
             "native codec cap mismatch (lib %d != %d) — rebuild "
-            "native/libwqlcodec.so; falling back to Python codec",
-            lib_cap, MAX_OBJS,
+            "%s; falling back to Python codec",
+            lib_cap, MAX_OBJS, lib_path,
         )
         return None
     return codec

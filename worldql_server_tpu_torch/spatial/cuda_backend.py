@@ -1131,10 +1131,16 @@ class CudaSpatialBackend(SpatialBackend):
             and self._dn == self._delta_built_n
             and self._delta_buf is not None
             and self._delta_bundle is not None
+            and self._delta_scatter_supported()
             and pending <= max(
                 1, int(self.delta_rebuild_threshold * self._delta_built_n)
             )
         )
+
+    def _delta_scatter_supported(self) -> bool:
+        """Single-device segments take the in-place sorted scatter; the
+        sharded backend overrides to False (its delta is replicated)."""
+        return True
 
     def _scatter_sorted_tombstones(self) -> None:
         """O(K) incremental update of the persistent device hash: land
@@ -1647,7 +1653,7 @@ class CudaSpatialBackend(SpatialBackend):
             )
             result = self._dispatch_csr(
                 queries, segs, ks, kinds,
-                next_pow2(csr_cap),
+                self._csr_effective_cap(next_pow2(csr_cap), queries, segs),
             )
         elif max_hits is not None:
             result = self._dispatch_sparse(
@@ -1710,6 +1716,16 @@ class CudaSpatialBackend(SpatialBackend):
     def _dispatch_csr(self, queries: tuple, segs, ks, kinds, t_cap: int):
         flat = [a for seg in segs for a in seg]
         return match_run_csr([*flat, *queries], len(segs), t_cap)
+
+    def _csr_effective_cap(self, t_cap: int, queries: tuple, segs) -> int:
+        """The slot capacity the CSR dispatch will REALLY run with at a
+        requested ``t_cap``. Subclasses raise it (per-shard region
+        floors); idempotent. Every caller that records a cap for the
+        overflow-sentinel test (collect_local_batch) must record this
+        value: if the dispatch's true cap were higher than the recorded
+        one, totals between the two would look like overflow and take
+        a spurious dense re-resolve every tick."""
+        return t_cap
 
     def match_local_batch(
         self, queries: Sequence[LocalQuery]
@@ -1966,11 +1982,11 @@ class CudaSpatialBackend(SpatialBackend):
         hint = (
             self._delta_delivery_cap if delta_sub else self._delivery_cap
         )
-        t_cap = next_pow2(max(
+        t_cap = self._csr_effective_cap(next_pow2(max(
             hint,
             # zone-A floor: one identity row per (padded query, segment)
             CSR_ROW * self._query_cap(m) * len(segs) + 64,
-        ))
+        )), qtuple, segs)
         self.last_dispatch_tier = {
             "t_cap": t_cap, "query_cap": self._query_cap(m),
             "segments": len(segs),

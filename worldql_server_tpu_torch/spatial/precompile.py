@@ -145,10 +145,16 @@ def precompile_tiers(backend, *, max_batch: int) -> dict:
             _sync(backend)
             dispatches += 1
         top = max(current, zone_floor) << (T_TIERS - 1)
+        seen_caps: set[int] = set()
         t_cap = zone_floor
         while t_cap < ceiling and t_cap <= top:
-            cap = t_cap
+            # the cap the dispatch really runs with (a mesh raises it
+            # to its per-row region floor), each walked once
+            cap = backend._csr_effective_cap(t_cap, qtuple, segs)
             t_cap *= 2
+            if cap in seen_caps:
+                continue
+            seen_caps.add(cap)
             if dispatches + pack_calls >= budget:
                 skipped += 1
                 break
