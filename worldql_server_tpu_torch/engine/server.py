@@ -132,9 +132,9 @@ class WorldQLServer:
                     # kind on the same device; injected test backends
                     # can't be re-made
                     factory=(
-                        (lambda: build_backend(
+                        (lambda: self._trace_index(build_backend(
                             config, device=device,
-                            mesh_devices=mesh_devices))
+                            mesh_devices=mesh_devices)))
                         if backend is None else None
                     ),
                     failover_after=config.failover_after,
@@ -163,6 +163,9 @@ class WorldQLServer:
                 context=self.loop_monitor.snapshot,
             )
             self.tracer.on_trace = self.recorder.record
+        # the index's fan-out spans (index.*) nest under the ticker's
+        # tick.dispatch / tick.collect in the same traces
+        self._trace_index(getattr(self.backend, "inner", self.backend))
         if hasattr(self.backend, "_note_failure"):  # ResilientBackend
             self.backend.metrics = self.metrics
         # Device telemetry (observability/device.py): the per-tick
@@ -552,6 +555,14 @@ class WorldQLServer:
         if self.resilience_status() is not None:
             # containments, rebuilds and failovers: never silent
             self.metrics.gauge("resilience", self.backend.status)
+
+    def _trace_index(self, index):
+        """Hands the server's tracer to a device index (the ``index.*``
+        spans of its fan-out path); a host index has none. Returns the
+        index, so a ResilientBackend's rebuild factory can wrap it."""
+        if hasattr(index, "tracer"):
+            index.tracer = self.tracer
+        return index
 
     def resilience_status(self) -> dict | None:
         """Degraded-mode state for /healthz; None without a

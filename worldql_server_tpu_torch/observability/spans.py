@@ -42,9 +42,13 @@ _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
 
 
 class Span:
-    """One completed (or open) stage: name + wall window + tags."""
+    """One completed (or open) stage: name + wall window + tags, and
+    the thread it ran on: its name, and its native id (``tid``, the
+    thread id of a ``torch.profiler`` chrome trace's host ops, so the
+    device ops they launch can be tied to the span)."""
 
-    __slots__ = ("id", "parent", "name", "t0", "dur_ms", "tags", "thread")
+    __slots__ = ("id", "parent", "name", "t0", "dur_ms", "tags", "thread",
+                 "tid")
 
     def __init__(self, id, parent, name, t0, tags, thread):
         self.id = id
@@ -53,7 +57,9 @@ class Span:
         self.t0 = t0           # perf_counter seconds
         self.dur_ms = 0.0
         self.tags = tags
-        self.thread = thread
+        # the Thread object's own copy: get_native_id() is a syscall
+        self.thread = thread.name
+        self.tid = thread.native_id
 
     def tag(self, **tags) -> None:
         """Late tags (values known only at stage end) — same surface
@@ -163,7 +169,7 @@ class _SpanCtx:
         parent = cur[1] if cur is not None and cur[0] is trace else None
         self._span = Span(
             trace._new_id(), parent, self._name, time.perf_counter(),
-            self._tags, threading.current_thread().name,
+            self._tags, threading.current_thread(),
         )
         self._token = _CURRENT.set((trace, self._span.id))
         return self._span
@@ -248,6 +254,28 @@ class Tracer:
             return _SpanCtx(cur[0], name, tags)
         trace = Trace(name, on_finish=self._emit, **tags)
         return _SpanCtx(trace, name, tags, root=True)
+
+    def record(self, name: str, t0: float, t1: float, **tags) -> None:
+        """A finished span from the caller's own ``perf_counter`` reads
+        (a stage whose wall the caller also keeps, such as the index's
+        device-timing legs): attached like :meth:`span`, to the current
+        context's trace under its innermost open span, else loose."""
+        if not self.enabled:
+            return
+        cur = _CURRENT.get()
+        if cur is not None:
+            trace, parent = cur
+        else:
+            trace, parent = Trace(name, on_finish=self._emit, **tags), None
+            # a loose trace starts with its one span, not now
+            trace.wall_start -= trace.perf_start - t0
+            trace.perf_start = t0
+        span = Span(trace._new_id(), parent, name, t0, tags,
+                    threading.current_thread())
+        span.dur_ms = (t1 - t0) * 1e3
+        trace.add(span)
+        if cur is None:
+            trace.finish()
 
     def _emit(self, trace: Trace) -> None:
         if self.on_trace is not None:

@@ -43,6 +43,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..observability.spans import Tracer
 from ..ops.index import (
     CSR_ROW,
     CSR_ROW_B,
@@ -229,24 +230,36 @@ class CudaSpatialBackend(SpatialBackend):
         self.compact_min_bucket = 1 << 10
         self.compact_fetches = 0
         self.full_fetches = 0
+        #: result lanes shipped device → host, the prefetch included
+        #: (t_cap on a full fetch, the bucket on a packed one, M x K
+        #: dense), and the recipients the decode made of them
+        self.fetch_slots = 0
+        self.lanes_decoded = 0
+        # the collect's counters: two pipelined collects may overlap
+        self._counts_lock = threading.Lock()
         #: what the LAST collect shipped over the link (the tick
         #: batcher reports these as tick.fetch_bytes /
         #: tick.compaction_bucket)
         self.last_collect_stats = {
             "fetch_slots": 0, "fetch_bytes": 0, "compaction_bucket": 0,
         }
-        # Per-tick device timing split: dispatch brackets {encode,
-        # h2d-enqueue, d2h-prefetch} walls into a dict that RIDES THE
-        # HANDLE, so pairing with its collect is structural at any
-        # pipeline depth. Collect adds the device wait + fetch walls and
-        # publishes the merged dict as ``last_device_timing`` for
-        # DeviceTelemetry to tag onto the tick trace. These are
-        # HOST-side brackets, not profiler truth: the "compute" wall
-        # includes the small D2H copies the wait covers.
-        self._last_prefetch_ms = 0.0
+        #: spans at the boundaries of the fan-out path, one each per
+        #: batch: ``index.partition`` / ``.encode`` / ``.launch`` on the
+        #: dispatching thread, ``index.wait`` / ``.fetch`` / ``.decode``
+        #: / ``.store`` on the collecting one, ``index.expand`` /
+        #: ``.fold`` around a query-kind batch. Off by default; the
+        #: server hands over its own (``--trace``).
+        self.tracer = Tracer()
+        # Per-tick device timing split, from the same clock reads as
+        # the spans: the dispatch's legs (encode_ms from index.encode,
+        # h2d_ms and d2h_enqueue_ms from index.launch) RIDE THE HANDLE,
+        # so pairing with its collect is structural at any pipeline
+        # depth; the collect that owns the handle adds compute_ms
+        # (index.wait) and d2h_ms (index.fetch) and publishes the merged
+        # dict as ``last_device_timing`` for DeviceTelemetry. These are
+        # HOST-side walls, not profiler truth: compute_ms is the wait on
+        # the prefetch's event, so it holds the prefetched copies.
         self.last_device_timing: dict = {}
-        #: capacity tier of the LAST dispatch (diagnostics)
-        self.last_dispatch_tier: dict = {}
         #: dispatches that arrived pre-encoded as staged columnar
         #: arrays (engine/staging.py) vs. as LocalQuery object lists —
         #: the bench smoke gate asserts the staged path actually fired
@@ -1629,10 +1642,12 @@ class CudaSpatialBackend(SpatialBackend):
         if not segs or m == 0:
             return m, None
 
+        t0 = time.perf_counter()
         queries = self._prepare_queries(
             world_ids, positions, sender_ids, repls
         )
-        result, _ = self._launch(
+        self._span("index.encode", t0)
+        result, _, _ = self._launch(
             queries, segs, ks, kinds, csr_cap=csr_cap, max_hits=max_hits
         )
         return m, result[0] if max_hits is None and csr_cap is None else result
@@ -1641,11 +1656,14 @@ class CudaSpatialBackend(SpatialBackend):
                 max_hits=None):
         """Pick the result layout, dispatch, and enqueue the D2H
         prefetch (by the time a pipelined caller reads, the copy has
-        landed — the read costs no round-trip). Returns ``(result,
-        prefetch)``: a tuple of device tensors and the
-        :class:`_HostCopy` of the ones prefetched. Shared by the array
-        API and the server delivery path so the dispatch pipeline
-        cannot drift between them."""
+        landed — the read costs no round-trip): the ``index.launch``
+        span. Returns ``(result, prefetch, legs)``: a tuple of device
+        tensors, the :class:`_HostCopy` of the ones prefetched, and the
+        span's timing legs (``h2d_ms``: the launch up to the prefetch,
+        queue time on a card; ``d2h_enqueue_ms``: the prefetch's
+        enqueue). Shared by the array API and the server delivery path
+        so the dispatch pipeline cannot drift between them."""
+        t0 = time.perf_counter()
         if csr_cap is not None:
             # zone A needs one identity row per (padded query, segment)
             csr_cap = max(
@@ -1671,11 +1689,17 @@ class CudaSpatialBackend(SpatialBackend):
             prefetch = (result[0], result[2])
         t_pf = time.perf_counter()
         host = _HostCopy(prefetch)
-        # D2H-prefetch enqueue wall, folded into the device timing
-        # split by dispatch_local_batch (the enqueue is async — the
-        # transfer itself lands inside the collect-side fetch wall)
-        self._last_prefetch_ms = (time.perf_counter() - t_pf) * 1e3
-        return result, host
+        t1 = self._span("index.launch", t0)
+        return result, host, {"h2d_ms": (t_pf - t0) * 1e3,
+                              "d2h_enqueue_ms": (t1 - t_pf) * 1e3}
+
+    def _span(self, name: str, t0: float) -> float:
+        """Ends the fan-out span ``name`` begun at ``t0``: one clock
+        read, shared by the timing legs and, with tracing on, the
+        span. Returns the read."""
+        t1 = time.perf_counter()
+        self.tracer.record(name, t0, t1)
+        return t1
 
     def _query_cap(self, m: int) -> int:
         """Padded query-batch capacity tier."""
@@ -1750,7 +1774,6 @@ class CudaSpatialBackend(SpatialBackend):
         m = len(queries)
         if m == 0:
             return (0, None, {})
-        t_start = time.perf_counter()
         world_ids = np.fromiter(
             (self._world_ids.get(q.world, -1) for q in queries),  # wql: allow(per-query-python-loop) — the legacy list-path encode
             dtype=np.int32, count=m,
@@ -1791,8 +1814,7 @@ class CudaSpatialBackend(SpatialBackend):
                 "fallback": "list_path",
             }
         return self._dispatch_encoded(
-            m, world_ids, positions, sender_ids, repls, t_start,
-            staged=False,
+            m, world_ids, positions, sender_ids, repls, staged=False,
         )
 
     def dispatch_staged_batch(
@@ -1815,15 +1837,13 @@ class CudaSpatialBackend(SpatialBackend):
                 world_ids, positions, sender_ids, repls,
                 kinds, params, staged=True,
             )
-        t_start = time.perf_counter()
         self.staged_dispatches += 1
         if self._delta_ticks:
             return self._dispatch_delta(
-                m, world_ids, positions, sender_ids, repls, t_start
+                m, world_ids, positions, sender_ids, repls
             )
         return self._dispatch_encoded(
-            m, world_ids, positions, sender_ids, repls, t_start,
-            staged=True,
+            m, world_ids, positions, sender_ids, repls, staged=True,
         )
 
     def _dispatch_kind_batch(
@@ -1843,6 +1863,7 @@ class CudaSpatialBackend(SpatialBackend):
         from ..queries.expand import expand_staged
 
         m = len(world_ids)
+        t0 = time.perf_counter()
         plan, p_wid, p_pos, p_sid, p_repl = expand_staged(
             world_ids, positions, sender_ids, repls, kinds, params,
             cube_size=self.cube_size,
@@ -1850,26 +1871,27 @@ class CudaSpatialBackend(SpatialBackend):
             stencil_max=self.query_stencil_max,
             ray_steps_max=self.query_ray_steps,
         )
+        self._span("index.expand", t0)
         self.kind_expansions += 1
         if staged:
             inner = self.dispatch_staged_batch(p_wid, p_pos, p_sid, p_repl)
         else:
             inner = self._dispatch_encoded(
-                len(p_wid), p_wid, p_pos, p_sid, p_repl,
-                time.perf_counter(), staged=False,
+                len(p_wid), p_wid, p_pos, p_sid, p_repl, staged=False,
             )
         return (m, ("qk", plan, inner), inner[2])
 
-    def _dispatch_delta(
-        self, m, world_ids, positions, sender_ids, repls, t_start,
-    ):
+    def _dispatch_delta(self, m, world_ids, positions, sender_ids, repls):
         """Temporal-coherence dispatch (delta ticks armed): partition
         the staged batch by the reuse cache — rows whose content
         signature matches a cached entry with a clean cube replay that
         entry's fan-out; only the DIRTY rows enter the device batch,
         at their own (smaller) capacity tier. The handle carries the
         replayed rows and the compute sub-batch; collect merges them
-        back in query order and refreshes the cache."""
+        back in query order and refreshes the cache. The
+        ``index.partition`` span holds the signatures, the partition
+        and the dirty rows' gather and cache keys."""
+        t0 = time.perf_counter()
         co = self._coherence
         h1, h2 = row_signatures(world_ids, positions, sender_ids, repls)
         h1_list = h1.tolist()
@@ -1889,68 +1911,63 @@ class CudaSpatialBackend(SpatialBackend):
         seq_now = co.seq
         if n_dirty == 0:
             # every row replayed: no device work at all this tick
+            self._span("index.partition", t0)
             self.flush()  # index mutations still owe their device sync
-            self.last_device_timing = {
-                "encode_ms": (time.perf_counter() - t_start) * 1e3,
-                "h2d_ms": 0.0, "d2h_enqueue_ms": 0.0,
+            return (m, ("tc", reused, None, None, (), (), (), seq_now), {
+                "encode_ms": 0.0, "h2d_ms": 0.0, "d2h_enqueue_ms": 0.0,
                 "compute_ms": 0.0, "d2h_ms": 0.0,
                 "path": "reuse", "staged": True, "query_cap": 0,
-            }
-            return (m, ("tc", reused, None, None, (), (), (), seq_now),
-                    dict(self.last_device_timing))
+            })
         if n_dirty == m:
             # cold cache / all-dirty: dispatch the batch unsplit (no
             # gather cost) but still record results for future reuse
-            dkeys, _ = query_keys(
-                world_ids, positions, self.cube_size, self._seed
-            )
-            inner = self._dispatch_encoded(
-                m, world_ids, positions, sender_ids, repls, t_start,
-                staged=True,
-            )
-            return (inner[0], ("tc", reused, None, inner,
-                               h1_list, h2_list, dkeys.tolist(), seq_now),
-                    inner[2])
-        idx = np.asarray(dirty_rows, np.intp)
-        sub_wid = world_ids[idx]
-        sub_pos = np.ascontiguousarray(positions[idx])
-        sub_sid = sender_ids[idx]
-        sub_repl = repls[idx]
-        dkeys, _ = query_keys(sub_wid, sub_pos, self.cube_size, self._seed)
+            idx = None
+            sub = (world_ids, positions, sender_ids, repls)
+            dh1, dh2 = h1_list, h2_list
+        else:
+            idx = np.asarray(dirty_rows, np.intp)
+            sub = (world_ids[idx], np.ascontiguousarray(positions[idx]),
+                   sender_ids[idx], repls[idx])
+            dh1 = [h1_list[i] for i in dirty_rows]
+            dh2 = [h2_list[i] for i in dirty_rows]
+        dkeys, _ = query_keys(sub[0], sub[1], self.cube_size, self._seed)
+        dkeys = dkeys.tolist()
+        self._span("index.partition", t0)
         inner = self._dispatch_encoded(
-            n_dirty, sub_wid, sub_pos, sub_sid, sub_repl, t_start,
-            staged=True, delta_sub=True,
+            n_dirty, *sub, staged=True, delta_sub=idx is not None,
         )
-        return (m, ("tc", reused, idx, inner,
-                    [h1_list[i] for i in dirty_rows],
-                    [h2_list[i] for i in dirty_rows],
-                    dkeys.tolist(), seq_now),
+        return (m, ("tc", reused, idx, inner, dh1, dh2, dkeys, seq_now),
                 inner[2])
 
-    def _collect_delta(self, m, payload) -> list[list[uuid_mod.UUID]]:
+    def _collect_delta(self, payload, timing) -> list[list[uuid_mod.UUID]]:
         """Collect half of :meth:`_dispatch_delta`: wait out the dirty
         sub-batch (if any), splice replayed rows back in query order,
         and insert the recomputed fan-outs into the reuse cache under
-        the dispatch-time sequence snapshot. Runs on the collect
-        worker thread — cache inserts are single dict stores with
-        immutable values (see delta_ticks.py threading note)."""
+        the dispatch-time sequence snapshot (the ``index.store`` span).
+        Runs on the collect worker thread — cache inserts are single
+        dict stores with immutable values (see delta_ticks.py threading
+        note)."""
         _, reused, idx, inner, dh1, dh2, dkeys, seq_now = payload
         if inner is None:
+            self.last_device_timing = dict(timing)
             return reused
         sub = self.collect_local_batch(inner)
+        t0 = time.perf_counter()
         co = self._coherence
         if idx is None:  # all-dirty: sub IS the batch, in order
+            out = sub
             for j, targets in enumerate(sub):
                 co.store(dh1[j], dh2[j], dkeys[j], seq_now, targets)
-            return sub
-        out = reused
-        for j, i in enumerate(idx.tolist()):
-            out[i] = sub[j]
-            co.store(dh1[j], dh2[j], dkeys[j], seq_now, sub[j])
+        else:
+            out = reused
+            for j, i in enumerate(idx.tolist()):
+                out[i] = sub[j]
+                co.store(dh1[j], dh2[j], dkeys[j], seq_now, sub[j])
+        self._span("index.store", t0)
         return out
 
     def _dispatch_encoded(
-        self, m, world_ids, positions, sender_ids, repls, t_start,
+        self, m, world_ids, positions, sender_ids, repls,
         *, staged: bool, delta_sub: bool = False,
     ):
         """Shared launch tail of both dispatch paths: flush, quantize/
@@ -1963,13 +1980,12 @@ class CudaSpatialBackend(SpatialBackend):
         segs, ks, kinds = self._segments()
         if not segs:
             return (m, None, {})
+        t0 = time.perf_counter()
         qtuple = self._prepare_queries(
             world_ids, positions, sender_ids, repls
         )
-        # host-encode wall: quantize/hash/pad (+ the object-list
-        # interning loops when staged is False; index flush included —
-        # it runs on this thread either way)
-        t_encoded = time.perf_counter()
+        # host-encode wall: quantize/hash/pad and the H2D enqueue
+        encode_ms = (self._span("index.encode", t0) - t0) * 1e3
         # CSR delivery: the result ships ~total ints instead of a dense
         # [M, K] table (K is set by the hottest cube). The capacity
         # hint adapts to the observed fan-out. m * sum(K) is the true
@@ -1987,53 +2003,30 @@ class CudaSpatialBackend(SpatialBackend):
             # zone-A floor: one identity row per (padded query, segment)
             CSR_ROW * self._query_cap(m) * len(segs) + 64,
         )), qtuple, segs)
-        self.last_dispatch_tier = {
-            "t_cap": t_cap, "query_cap": self._query_cap(m),
-            "segments": len(segs),
-        }
-        if t_cap >= ceiling:
-            _, host = self._launch(qtuple, segs, ks, kinds)
-            timing = self._dispatch_timing(
-                t_start, t_encoded, path="dense", staged=staged, m=m,
-                delta_sub=delta_sub,
-            )
+        dense = t_cap >= ceiling
+        result, host, legs = self._launch(
+            qtuple, segs, ks, kinds, csr_cap=None if dense else t_cap)
+        # this dispatch's timing legs RIDE THE HANDLE to its own
+        # collect — pairing is structural, so an errored/dropped
+        # collect can never desync attribution at pipeline depth > 1;
+        # ``delta_sub`` rides along so the collect adapts the right
+        # capacity hint
+        timing = {"encode_ms": encode_ms, **legs,
+                  "path": "dense" if dense else "csr", "staged": staged,
+                  "delta_sub": delta_sub, "query_cap": self._query_cap(m)}
+        if dense:
             return (m, ("dense", host), timing)
-        result, host = self._launch(qtuple, segs, ks, kinds, csr_cap=t_cap)
-        timing = self._dispatch_timing(
-            t_start, t_encoded, path="csr", staged=staged, m=m,
-            delta_sub=delta_sub,
-        )
         return (m, ("csr", t_cap, result, (qtuple, segs, ks, kinds), host),
                 timing)
-
-    def _dispatch_timing(self, t_start: float, t_encoded: float, *,
-                         path: str, staged: bool, m: int,
-                         delta_sub: bool = False) -> dict:
-        """This dispatch's host-side timing legs. The dict RIDES THE
-        HANDLE to its own collect — pairing is structural, so an
-        errored/dropped collect can never desync attribution at
-        pipeline depth > 1 (the old FIFO deque could). ``delta_sub``
-        rides along so the collect adapts the right capacity hint."""
-        now = time.perf_counter()
-        return {
-            "encode_ms": (t_encoded - t_start) * 1e3,
-            # launch wall: H2D enqueue + kernel dispatch (async on
-            # a real device, so this is queue time, not compute)
-            "h2d_ms": (now - t_encoded) * 1e3
-            - self._last_prefetch_ms,
-            "d2h_enqueue_ms": self._last_prefetch_ms,
-            "path": path,
-            "staged": staged,
-            "delta_sub": delta_sub,
-            "query_cap": self._query_cap(m),
-        }
 
     def collect_local_batch(self, handle) -> list[list[uuid_mod.UUID]]:
         """Wait for a dispatched batch and decode fan-out UUID lists.
         Safe on a worker thread: peer ids are append-only (index reads
         stay valid), and the overflow fallback re-dispatches the device
         arrays CAPTURED at dispatch time — it never touches host state
-        the owning thread could be mutating."""
+        the owning thread could be mutating. Its spans: ``index.wait``
+        (the prefetch's event), ``index.fetch`` (what the prefetch did
+        not carry), ``index.decode``."""
         m, payload, timing = handle
         if payload is None:
             return [[] for _ in range(m)]
@@ -2043,50 +2036,47 @@ class CudaSpatialBackend(SpatialBackend):
             # replay), then fold them per original query
             from ..queries.expand import fold_collected
 
-            return fold_collected(
-                payload[1], self.collect_local_batch(payload[2])
-            )
+            probes = self.collect_local_batch(payload[2])
+            t0 = time.perf_counter()
+            out = fold_collected(payload[1], probes)
+            self._span("index.fold", t0)
+            return out
         if payload[0] == "tc":
             # delta-tick handle: replayed rows + dirty sub-batch; the
             # inner handle (when any) carries its own timing legs
-            return self._collect_delta(m, payload)
-        # timing rides the handle (see _dispatch_timing): copy before
-        # merging so a re-collect of the same handle (drain after a
-        # cancelled collect) starts from the dispatch-side legs
+            return self._collect_delta(payload, timing)
+        # timing rides the handle: copy before merging so a re-collect
+        # of the same handle (drain after a cancelled collect) starts
+        # from the dispatch-side legs
         timing = dict(timing)
+        delta_sub = bool(timing.get("delta_sub"))
+        t0 = time.perf_counter()
         if payload[0] == "dense":
             # collect_local_batch IS the tick's designated sync point:
             # it runs on the worker thread while the loop keeps serving
             # transports, so these converts block nothing but the tick.
-            t_wait = time.perf_counter()
-            tgt = payload[1].get()[0][:m]
-            # dense fetch = one blocking convert: device wait and D2H
+            # Dense fetch = one blocking convert: device wait and D2H
             # are indivisible here, so the whole wall lands in
             # compute_ms (tagged by path so readers know)
-            timing.update(
-                compute_ms=(time.perf_counter() - t_wait) * 1e3,
-                d2h_ms=0.0,
-            )
+            tgt = payload[1].get()[0][:m]
+            t1 = self._span("index.wait", t0)
+            timing.update(compute_ms=(t1 - t0) * 1e3, d2h_ms=0.0)
             self.last_device_timing = timing
             self._note_fetch(int(tgt.size), 0)
             counts, flat = _dense_to_csr(tgt)
             # the hint must keep adapting here too, or a flash-crowd
             # inflation would park every batch on the dense ceiling
             # path forever
-            self._adapt_delivery_cap(
-                counts, grow=False,
-                delta_sub=bool(timing.get("delta_sub")),
-            )
-            return self._decode_csr(counts, flat, m)
+            self._adapt_delivery_cap(counts, grow=False, delta_sub=delta_sub)
+            return self._decoded(self._decode_csr(counts, flat, m), t1)
         _, t_cap, (counts_dev, flat, _), ctx, host = payload
-        delta_sub = bool(timing.get("delta_sub"))
-        t_wait = time.perf_counter()
         fetched = host.get()
         total = int(fetched[-1])
         # the prefetch's event is the tick's designated device-wait
-        # point: it fires once the batch and its small D2H copies are
-        # done, so this wall is the compute leg
-        timing["compute_ms"] = (time.perf_counter() - t_wait) * 1e3
+        # point: it fires once the batch and its D2H copies are done,
+        # so this wall is the compute leg
+        t1 = self._span("index.wait", t0)
+        timing["compute_ms"] = (t1 - t0) * 1e3
         if total > t_cap:
             # Rare: the tick's fan-out outgrew the hint — re-resolve
             # dense against the same index snapshot and raise the hint
@@ -2104,31 +2094,37 @@ class CudaSpatialBackend(SpatialBackend):
             else:
                 self._delivery_cap = grown
             qtuple, segs, ks, kinds = ctx
-            t_fetch = time.perf_counter()
             tgt = _to_host(self._dispatch(qtuple, segs, ks, kinds))[:m]
-            timing.update(
-                d2h_ms=(time.perf_counter() - t_fetch) * 1e3,
-                path="overflow",
-            )
+            t2 = self._span("index.fetch", t1)
+            timing.update(d2h_ms=(t2 - t1) * 1e3, path="overflow")
             self.last_device_timing = timing
             self._note_fetch(int(tgt.size), 0)
-            return self._decode_csr(*_dense_to_csr(tgt), m)
+            return self._decoded(self._decode_csr(*_dense_to_csr(tgt), m),
+                                 t2)
         # counts stays UNTRIMMED: padding queries resolve 0 rows
-        t_fetch = time.perf_counter()
         counts = fetched[0]
         self._adapt_delivery_cap(counts, grow=True, delta_sub=delta_sub)
         packed = self._compact_fetch(counts_dev, flat, total, t_cap)
-        if packed is not None:
-            timing["d2h_ms"] = (time.perf_counter() - t_fetch) * 1e3
-            self.last_device_timing = timing
-            return self._decode_packed(counts, packed, m)
-        self._note_fetch(t_cap, 0)
-        # the prefetch carried the flat result unless the tier was
-        # compaction-applicable (then only counts + total went down)
-        flat_host = fetched[1] if len(fetched) == 3 else _to_host(flat)
-        timing["d2h_ms"] = (time.perf_counter() - t_fetch) * 1e3
+        if packed is None:
+            self._note_fetch(t_cap, 0)
+            # the prefetch carried the flat result unless the tier was
+            # compaction-applicable (then only counts + total went down)
+            flat_host = fetched[1] if len(fetched) == 3 else _to_host(flat)
+        t2 = self._span("index.fetch", t1)
+        timing["d2h_ms"] = (t2 - t1) * 1e3
         self.last_device_timing = timing
-        return self._decode_csr(counts, flat_host, m)
+        if packed is not None:
+            return self._decoded(self._decode_packed(counts, packed, m), t2)
+        return self._decoded(self._decode_csr(counts, flat_host, m), t2)
+
+    def _decoded(self, out: list, t0: float) -> list:
+        """Ends the ``index.decode`` span begun at ``t0`` and counts the
+        recipients the decode made."""
+        lanes = sum(map(len, out))
+        with self._counts_lock:
+            self.lanes_decoded += lanes
+        self._span("index.decode", t0)
+        return out
 
     def _compact_applicable(self, t_cap: int) -> bool:
         """Whether a tick at this capacity tier is worth compacting:
@@ -2160,10 +2156,12 @@ class CudaSpatialBackend(SpatialBackend):
         """Record what a collect shipped over the link (``bucket`` 0 =
         full fetch). Worker-thread safe: the dict is replaced
         wholesale, never mutated in place."""
-        if bucket:
-            self.compact_fetches += 1
-        else:
-            self.full_fetches += 1
+        with self._counts_lock:
+            if bucket:
+                self.compact_fetches += 1
+            else:
+                self.full_fetches += 1
+            self.fetch_slots += int(slots)
         self.last_collect_stats = {
             "fetch_slots": int(slots),
             "fetch_bytes": int(slots) * 4,
@@ -2369,6 +2367,8 @@ class CudaSpatialBackend(SpatialBackend):
             "compaction_in_flight": self._compaction is not None,
             "compact_fetches": self.compact_fetches,
             "full_fetches": self.full_fetches,
+            "fetch_slots": self.fetch_slots,
+            "lanes_decoded": self.lanes_decoded,
             "staged_dispatches": self.staged_dispatches,
             "list_dispatches": self.list_dispatches,
             "kind_expansions": self.kind_expansions,
